@@ -6,14 +6,20 @@ Phases (any failure exits non-zero without the final line):
 
 1. build     compile both CUDA kernels (one nvcc per source, in parallel)
 2. kernels   each kernel against its plain PyTorch version on the card,
-             bit for bit, and timed (CUDA events, median of 25 runs)
+             bit for bit, and timed (CUDA events, median of 25 runs);
+             row_totals at the lfr100k shape, the run's later widths 9
+             and 25, two wide shapes and the widths around its
+             flat/sorted cut-over, and with non-integer weights against
+             the left fold in slot order (two launches)
 3. karate    the port's CLI on the karate club graph (matmul sweep path)
 4. gpu_cpu   one planted 5k-node graph through the hybrid path on the card
              and on the CPU: per-member agreement must reach NMI 0.99
 5. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
 6. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
-             delta=0.02, max_rounds=8, closure_tau=0.2
+             delta=0.02, max_rounds=8, closure_tau=0.2; afterwards
+             row_totals at every shape the run launched it at, checked
+             as in phase 2 and timed
 
 Kernel launch counters are reset just before phases 5 and 6 and read just
 after: phase 6 must launch ``row_totals``, phase 5 ``fused_move_rows``.
@@ -24,6 +30,7 @@ and power limit; the last line is the device record.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -114,6 +121,56 @@ def planted_graph(n: int, n_comm: int, p_in: float, p_out: float, seed: int,
     return edges[edges[:, 0] != edges[:, 1]], truth
 
 
+def random_rows(rng, r: int, d: int):
+    """Padded rows on the device: labels in [0, d // 3), a fifth of the
+    slots SENTINEL (weight 0), integer weights in [1, 200)."""
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    lab = rng.integers(0, max(2, d // 3), (r, d)).astype(np.int32)
+    lab[rng.random((r, d)) < 0.2] = rk.SENTINEL
+    w = rng.integers(1, 200, (r, d)).astype(np.float32)
+    w[lab == rk.SENTINEL] = 0.0
+    return torch.as_tensor(lab).to(DEVICE), torch.as_tensor(w).to(DEVICE)
+
+
+def row_totals_bound(r: int, d: int):
+    """Least time of row_totals on [r, d]: read lab and w, write total and
+    head (13 B a slot); its least work, a sort of each row's labels and a
+    sum over its runs, D*log2(D) operations a row."""
+    return bound_ms(r * d * 13.0, r * d * math.log2(max(d, 2)))
+
+
+def check_row_totals(lab, w) -> float:
+    """Hold the row_totals kernel on ``lab``, ``w`` bit for bit against
+    its plain version, and with non-integer weights against the left fold
+    in ascending slot order, the same bits on two launches.  Returns the
+    max abs error (0.0); raises PhaseError on any difference."""
+    import torch
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    r, d = lab.shape
+    t, h = rk.row_totals_cuda(lab, w)
+    sync()
+    pt, ph = rk.row_totals_plain(lab, w)
+    err = float((t - pt).abs().max())
+    bad = int((h != ph).sum())
+    check(err == 0.0 and bad == 0,
+          f"row_totals [{r}, {d}]: max_abs_err {err}, {bad} head mismatches")
+    del t, h, pt, ph
+    wf = torch.where(lab == rk.SENTINEL, 0.0, w * 0.0137 + 0.3).contiguous()
+    f1, _ = rk.row_totals_cuda(lab, wf)
+    f2, _ = rk.row_totals_cuda(lab, wf)
+    sync()
+    check(torch.equal(f1, f2), f"row_totals [{r}, {d}]: two launches differ")
+    check(torch.equal(f1, rk.row_totals_fold(lab, wf)),
+          f"row_totals [{r}, {d}]: non-integer totals differ from the fold")
+    return err
+
+
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
@@ -146,44 +203,39 @@ def phase_kernels(state):
     rng = np.random.default_rng(0)
     # (width, members, rows per member): the shape the lfr100k main path
     # gives the kernel in its first sweeps (hybrid rows of d_hyb + 1 slots,
-    # one member chunk of 100k rows each), a mid width, and the widest
-    # dense row the slab sizing allows
+    # one member chunk of 100k rows each), the run's later hybrid widths
+    # (d_hyb re-derived to 8 and 24) at the row counts it launches them at
+    # most, a mid width, and the widest dense row the slab sizing allows
     data = np.load(ROOT / "bench_data" / "lfr100k.npz")
     big = pack_edges(data["edges"], int(data["labels"].shape[0]),
                      device=DEVICE)
     check(lv.select_move_path(big) == "hybrid", "lfr100k is not hybrid")
     main_shape = (big.d_hyb + 1, members_per_call(big, state["n_p"]),
                   big.n_nodes)
-    shapes = [main_shape] + state.get("extra_widths",
-                                      [(128, 8, 20_000), (1025, 2, 5_000)])
+    shapes = [main_shape, (9, 4, 100_000), (25, 12, 100_000)]
+    shapes += state.get("extra_widths",
+                        [(128, 8, 20_000), (1025, 2, 5_000)])
+    # the last flat width, the first sorted one and the one before
+    cut = rk.FLAT_MAX_D
+    shapes += state.get("cut_widths", [(cut - 1, 1, 60_000),
+                                       (cut, 1, 60_000),
+                                       (cut + 1, 1, 60_000)])
     for d, m, n in shapes:
-        lab = rng.integers(0, max(2, d // 3), (m, n, d)).astype(np.int32)
-        lab[rng.random((m, n, d)) < 0.2] = rk.SENTINEL
-        w = rng.integers(1, 200, (m, n, d)).astype(np.float32)
-        w[lab == rk.SENTINEL] = 0.0
-        lab_c = torch.as_tensor(lab.reshape(m * n, d)).to(DEVICE)
-        w_c = torch.as_tensor(w.reshape(m * n, d)).to(DEVICE)
-        t, h = rk.row_totals(lab_c, w_c)
-        sync()
-        pt, ph = rk.row_totals_plain(lab_c, w_c)
-        err = float((t - pt).abs().max())
-        bad = int((h != ph).sum())
-        check(err == 0.0 and bad == 0,
-              f"row_totals D={d}: max_abs_err {err}, {bad} head mismatches")
+        lab_c, w_c = random_rows(rng, m * n, d)
+        err = check_row_totals(lab_c, w_c)
         r = m * n
         ms = median_ms(lambda: rk.row_totals(lab_c, w_c))
         plain = median_ms(lambda: rk.row_totals_plain(lab_c, w_c),
                           runs=21)
-        # least work: read lab and w, write total and head (13 B a slot);
-        # a sort of each row's labels and a sum over its runs, D*log2(D)
-        # operations a row (the kernel's all-pairs loop does D^2)
-        b, by = bound_ms(r * d * 13.0, r * d * math.log2(d))
+        b, by = row_totals_bound(r, d)
         rows.setdefault("row_totals", []).append(dict(
             d=d, rows=r, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=b, bound_by=by))
-        log(f"kernel row_totals [{r}, {d}]: exact; {ms:.4f} ms (plain "
-            f"{plain:.3f} ms, bound {b:.4f} ms by {by})")
-        del lab_c, w_c, t, h, pt, ph
+        log(f"kernel row_totals [{r}, {d}] "
+            f"({'flat' if d <= cut else 'sorted'}): exact, deterministic "
+            f"fold; {ms:.4f} ms (plain {plain:.3f} ms, bound {b:.4f} ms by "
+            f"{by}, {b / ms:.1%} of it)")
+        del lab_c, w_c
 
     # fused_move_rows on the rows of a real dense-path slab
     edges, _ = planted_graph(5000, 50, 0.2, 0.0005, seed=3)
@@ -226,7 +278,7 @@ def phase_kernels(state):
                                     plain_ms=plain, bound_ms=bb,
                                     bound_by=by)]
     log(f"kernel fused_move_rows [{r}, {d1}]: exact; {ms:.4f} ms (plain "
-        f"{plain:.3f} ms, bound {bb:.4f} ms by {by})")
+        f"{plain:.3f} ms, bound {bb:.4f} ms by {by}, {bb / ms:.1%} of it)")
     state["kernel_rows"] = rows
 
 
@@ -353,26 +405,18 @@ def phase_lfr100k(state):
         truth = truth[:n]
     if n_p != 200:
         log(f"lfr100k: n_p cut 200 -> {n_p} to fit the time limit")
-    shapes = set()
-    orig = rk.row_totals_cuda
-
-    def recording(lab, w):
-        shapes.add(tuple(lab.shape))
-        return orig(lab, w)
-
-    rk.row_totals_cuda = recording
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    try:
-        rk.reset_launches()
-        res, wall, per_round = _run(
-            edges, n, DEVICE, n_p=n_p, tau=0.2, delta=0.02,
-            max_rounds=state["max_rounds"], seed=0, closure_tau=0.2)
-        launches = dict(rk.LAUNCHES)
-    finally:
-        rk.row_totals_cuda = orig
+    rk.reset_launches()
+    res, wall, per_round = _run(
+        edges, n, DEVICE, n_p=n_p, tau=0.2, delta=0.02,
+        max_rounds=state["max_rounds"], seed=0, closure_tau=0.2)
+    launches = dict(rk.LAUNCHES)
+    shapes = dict(rk.ROW_TOTALS_SHAPES)
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
     scores = [nmi(p, truth) for p in res.partitions]
+    digest = hashlib.sha1(np.stack(res.partitions).astype(np.int64)
+                          .tobytes()).hexdigest()[:16]
     for h in res.history:
         log(f"  round {h['round']}: {h['n_alive']} alive, "
             f"{h['n_unconverged']} unconverged, cold={h['cold']}, "
@@ -383,12 +427,28 @@ def phase_lfr100k(state):
         f"{[round(x, 3) for x in per_round]} nmi_mean={np.mean(scores):.4f} "
         f"nmi_min={min(scores):.4f} max_memory_allocated={peak} "
         f"partitions/s={n_p / wall:.3f} launches={launches} "
-        f"row_totals_shapes={sorted(shapes)}")
+        f"row_totals_launches_by_shape={sorted(shapes.items())} "
+        f"partitions_sha1={digest}")
     check(launches["row_totals"] > 0, "lfr100k never launched row_totals")
+    # the kernel at each shape the run gave it, on random rows (the flat
+    # regime's work does not depend on the labels): exact against the
+    # plain version, and timed; time lost there is launches x (ms - bound)
+    rng = np.random.default_rng(1)
+    per_shape = []
+    for (r, d), count in sorted(shapes.items()):
+        lab_c, w_c = random_rows(rng, r, d)
+        check_row_totals(lab_c, w_c)
+        ms = median_ms(lambda: rk.row_totals_cuda(lab_c, w_c))
+        b, _ = row_totals_bound(r, d)
+        per_shape.append(dict(rows=r, d=d, launches=count, ms=ms,
+                              bound_ms=b, lost_ms=count * (ms - b)))
+        log(f"  row_totals at [{r}, {d}]: exact; {count} launches, "
+            f"{ms:.4f} ms, bound {b:.4f} ms, lost {count * (ms - b):.1f} ms")
+        del lab_c, w_c
     check(len(res.partitions) == n_p and all(
         p.shape == (n,) for p in res.partitions), "partition shapes")
     state["launches_main"] = launches
-    state["row_shapes_seen"] = sorted(shapes)
+    state["row_shapes_seen"] = per_shape
     state["lfr100k"] = dict(rounds=res.rounds, converged=res.converged,
                             wall_s=wall, per_round_s=per_round,
                             nmi_mean=float(np.mean(scores)),
@@ -451,8 +511,8 @@ def phase_profile(state):
             busy += b - max(a, end)
             end = b
     own = sum(e.time_range.end - e.time_range.start for e in events
-              if "row_totals_kernel" in e.name)
-    log(f"profile: row_totals_kernel device time {own / 1e6:.3f}s "
+              if "row_totals_" in e.name)
+    log(f"profile: row_totals kernels' device time {own / 1e6:.3f}s "
         f"({own / max(busy, 1e-9):.2%} of device busy time)")
     log(f"profile: rounds={res.rounds} wall={wall:.2f}s per_round="
         f"{[round(x, 3) for x in per_round]} device_busy={busy / 1e6:.2f}s "
@@ -483,6 +543,8 @@ def kernels_line(state) -> str:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None, "shape": [first["rows"], first["d"]],
             "launches_counted_on": counted_on,
+            "launches_by_shape": (state.get("row_shapes_seen", [])
+                                  if name == "row_totals" else []),
             "other_shapes": [{k: r[k] for k in ("rows", "d", "ms", "plain_ms",
                                                 "bound_ms", "bound_by")}
                              for r in rows[name][1:]]})

@@ -10,13 +10,22 @@ Two kernels replace the two Pallas TPU kernels of
 * ``fused_move_rows`` (``csrc/fused_move_rows.cu``) — a whole dense move
   sweep per row (opt-in, ``FCTPU_FUSED=1`` on the dense path).
 
+Both take their totals from one aggregation, ``csrc/row_agg.cuh``, in two
+regimes: rows of up to ``FLAT_MAX_D`` slots go through flat tiles of whole
+rows (a persistent, double-buffered grid; a thread folds a 9- or 17-slot
+chunk of a row), wider rows (up to 2048 slots) are sorted in shared
+memory by 32-bit (label, slot) keys.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback.  Each wrapper adds
-one to ``LAUNCHES[name]`` where it launches its kernel and nowhere else.
+one to ``LAUNCHES[name]`` where it launches its kernel and nowhere else;
+``row_totals`` also counts its launches by shape, ``(rows, D)``, in
+``ROW_TOTALS_SHAPES``.
 
 Build: each source compiles with its own ``nvcc`` process (all started
 together) into ``fastconsensus_tpu_torch/_build/`` at first use, keyed by
-the source's content hash, and loads with ctypes: a plain C entry point
+the content hash of the source, every header under ``csrc/`` and the
+flags, and loads with ctypes: a plain C entry point
 that launches on the current stream and returns ``cudaGetLastError()``.
 """
 
@@ -29,12 +38,16 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 SENTINEL = 2 ** 31 - 1
+
+# Widest row of the flat-tile regime: ROW_AGG_FLAT_MAX in csrc/row_agg.cuh.
+FLAT_MAX_D = 64
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -44,6 +57,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+ROW_TOTALS_SHAPES: Counter = Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -56,6 +70,7 @@ _PLAIN_ELEMS = 1 << 26
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROW_TOTALS_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -70,9 +85,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """Build path keyed by the source, every ``*.cuh`` under ``csrc/`` (a
+    source may include any of them) and the flags."""
+    h = hashlib.sha1((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
@@ -180,6 +199,17 @@ def row_totals_plain(lab: torch.Tensor, w: torch.Tensor
     return total, head
 
 
+def row_totals_fold(lab: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Totals in the kernel's own sum order, the left fold over matching
+    slots in ascending j (each step ``t + 0`` or ``t + w[j]``, exact in
+    float32).  The checks hold the kernel to it bit for bit at any weights;
+    ``row_totals_plain`` sums in torch's order, equal only for integers."""
+    total = torch.zeros(lab.shape, dtype=torch.float32, device=lab.device)
+    for j in range(lab.shape[1]):
+        total += torch.where(lab == lab[:, j:j + 1], w[:, j:j + 1], 0.0)
+    return total
+
+
 def row_totals_cuda(lab: torch.Tensor, w: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/row_totals.cu`` on ``lab`` int32[R, D], ``w``
@@ -195,6 +225,7 @@ def row_totals_cuda(lab: torch.Tensor, w: torch.Tensor
     head = torch.empty((r, d), dtype=torch.bool, device=lab.device)
     stream = torch.cuda.current_stream(lab.device).cuda_stream
     LAUNCHES["row_totals"] += 1
+    ROW_TOTALS_SHAPES[(r, d)] += 1
     _raise_on("row_totals", fn(lab.data_ptr(), w.data_ptr(),
                                total.data_ptr(), head.data_ptr(), r, d,
                                stream))

@@ -34,23 +34,76 @@ def random_rows(rng, n, d, n_labels):
     return lab, w
 
 
-@pytest.mark.parametrize("d", [17, 128, 1025])
+CUT = rk.FLAT_MAX_D
+
+
+def edge_rows(lab, w):
+    """Rows 0-3 as the regimes' edge cases: only SENTINEL, one repeated
+    label, labels near the top of int32, and labels that differ only
+    above bit 25 (one group of the sorted rows' 32-bit keys)."""
+    d = lab.shape[1]
+    lab[0], w[0] = SENT, 0.0
+    lab[1], w[1] = 7, np.arange(1, d + 1) % 5 + 1
+    lab[2] = 2 ** 31 - 2 - np.arange(d) % 3
+    lab[2, ::4] = SENT
+    w[2] = np.where(lab[2] == SENT, 0.0, 3.0)
+    lab[3] = 5 + (np.arange(d) * 7 % 4) * 2 ** 25
+    lab[3, 1::5] = SENT
+    w[3] = np.where(lab[3] == SENT, 0.0, np.arange(d) % 3 + 1)
+
+
+# widths on both sides of 32 lanes, of the flat chunks (9 and 17 slots)
+# and of the flat/sorted cut-over, the main path's widths (9, 17, 25);
+# at least 514 random rows, a count that leaves the last flat tile (64 to
+# 256 rows) or sort block of 8 rows ragged at every width here that has
+# more than one row in a block
+@pytest.mark.parametrize("d", [1, 2, 9, 10, 17, 25, 31, 32, 33, CUT - 1, CUT,
+                               CUT + 1, 128, 1025])
 def test_row_totals_kernel_matches_plain(card, d):
-    lab, w = random_rows(np.random.default_rng(d), 2 * 257, d, d // 3 + 2)
+    n = max(514, 2 * max(1, 4096 // d) + 3)
+    lab, w = random_rows(np.random.default_rng(d), n, d, d // 3 + 2)
+    edge_rows(lab, w)
     lab_c, w_c = torch.as_tensor(lab, device=card), torch.as_tensor(
         w, device=card)
     rk.reset_launches()
     total, head = rk.row_totals(lab_c, w_c)
     torch.cuda.synchronize()
     assert rk.LAUNCHES["row_totals"] == 1
+    assert rk.ROW_TOTALS_SHAPES == {(n, d): 1}
     p_total, p_head = rk.row_totals_plain(lab_c, w_c)
     assert torch.equal(total, p_total) and torch.equal(head, p_head)
+    # views that start off a 16-byte boundary
+    total, head = rk.row_totals(lab_c[1:], w_c[1:])
+    assert torch.equal(total, p_total[1:]) and torch.equal(head, p_head[1:])
 
 
+def test_row_totals_kernel_refuses_rows_past_sort_max(card):
+    lab = torch.full((2, 2049), 3, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rk.row_totals(lab, torch.ones(lab.shape, device=card))
+
+
+@pytest.mark.parametrize("d", [17, CUT, CUT + 1, 1025])
+def test_row_totals_kernel_is_deterministic_fold(card, d):
+    """Non-integer weights: every launch gives the same bits, those of the
+    left fold in ascending slot order, in both regimes."""
+    rng = np.random.default_rng(100 + d)
+    lab, w = random_rows(rng, 3 * max(1, 4096 // d) + 1, d, d // 3 + 2)
+    w = np.where(lab == SENT, 0.0, rng.random(lab.shape) * 3).astype(
+        np.float32)
+    lab_c, w_c = torch.as_tensor(lab, device=card), torch.as_tensor(
+        w, device=card)
+    first, _ = rk.row_totals(lab_c, w_c)
+    again, _ = rk.row_totals(lab_c, w_c)
+    assert torch.equal(first, again)
+    assert torch.equal(first, rk.row_totals_fold(lab_c, w_c))
+
+
+@pytest.mark.parametrize("d_self", [8, 20, CUT - 1, CUT, 200])
 @pytest.mark.parametrize("seed", range(3))
-def test_fused_move_rows_kernel_matches_plain(card, seed):
+def test_fused_move_rows_kernel_matches_plain(card, seed, d_self):
     rng = np.random.default_rng(seed)
-    n, d_self = 500, 20
+    n = 500
     d = d_self + 1
     lab = rng.integers(0, 40, (n, d)).astype(np.int32)
     lab[rng.random((n, d)) < 0.3] = SENT

@@ -95,12 +95,15 @@ def test_fused_move_rows_plain_matches_pallas(seed):
 
 
 def test_cpu_tensors_take_plain_version_without_counting():
+    rk.ROW_TOTALS_SHAPES[(4, 9)] += 1
     rk.reset_launches()
+    assert not rk.ROW_TOTALS_SHAPES
     lab, w = random_rows(np.random.default_rng(1), 4, 9)
     rk.row_totals(torch.as_tensor(lab), torch.as_tensor(w))
     args = fused_inputs(0, n=8, d_self=4)
     rk.fused_move_rows(*(torch.as_tensor(a) for a in args[:4]), args[4])
     assert rk.LAUNCHES == {"row_totals": 0, "fused_move_rows": 0}
+    assert not rk.ROW_TOTALS_SHAPES
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(monkeypatch):
@@ -127,3 +130,52 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(rk, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         rk.build()
+
+
+def test_lib_path_covers_headers(monkeypatch, tmp_path):
+    """Editing a shared header under csrc/ changes every library's build
+    path, so no stale library is loaded after it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in rk.SOURCES.values():
+        (csrc / src).write_text(f'#include "agg.cuh"  // {src}\n')
+    (csrc / "agg.cuh").write_text("#define A 1\n")
+    monkeypatch.setattr(rk, "CSRC", csrc)
+    monkeypatch.setattr(rk, "BUILD_DIR", tmp_path / "build")
+    before = {name: rk._lib_path(name) for name in rk.SOURCES}
+    assert len(set(before.values())) == len(before)
+    assert rk._lib_path("row_totals") == before["row_totals"]
+    (csrc / "agg.cuh").write_text("#define A 2\n")
+    after = {name: rk._lib_path(name) for name in rk.SOURCES}
+    assert all(after[n] != before[n] for n in rk.SOURCES)
+    assert all(p.parent == tmp_path / "build" for p in after.values())
+
+
+def test_flat_max_d_matches_header():
+    text = (rk.CSRC / "row_agg.cuh").read_text()
+    assert f"#define ROW_AGG_FLAT_MAX {rk.FLAT_MAX_D}\n" in text
+    for src in rk.SOURCES.values():
+        assert '#include "row_agg.cuh"' in (rk.CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_row_totals_fold_is_ascending_left_fold(integer):
+    """``row_totals_fold`` (what the kernels are held to at any weights) is
+    the per-slot left fold in ascending j, and equals the plain version
+    bit for bit at integer weights."""
+    lab, w = random_rows(np.random.default_rng(5), 23, 19, integer=integer)
+    fold = rk.row_totals_fold(torch.as_tensor(lab), torch.as_tensor(w))
+    want = np.zeros(lab.shape, np.float32)
+    for r in range(lab.shape[0]):
+        for i in range(lab.shape[1]):
+            t = np.float32(0.0)
+            for j in range(lab.shape[1]):
+                if lab[r, j] == lab[r, i]:
+                    t = np.float32(t + w[r, j])
+            want[r, i] = t
+    np.testing.assert_array_equal(fold.numpy(), want)
+    plain, _ = rk.row_totals_plain(torch.as_tensor(lab), torch.as_tensor(w))
+    if integer:
+        np.testing.assert_array_equal(fold.numpy(), plain.numpy())
+    else:
+        np.testing.assert_allclose(fold.numpy(), plain.numpy(), rtol=1e-5)
