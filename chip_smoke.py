@@ -11,18 +11,30 @@ Phases (any failure exits non-zero without the final line):
              and 25, two wide shapes and the widths around its
              flat/sorted cut-over, and with non-integer weights against
              the left fold in slot order (two launches)
-3. karate    the port's CLI on the karate club graph (matmul sweep path)
+3. karate    the port's CLI on the karate club graph with --alg louvain
+             (matmul sweep path), leiden and lpm: 20 valid partitions each
 4. gpu_cpu   one planted 5k-node graph through the hybrid path on the card
-             and on the CPU: per-member agreement must reach NMI 0.99
+             and on the CPU with louvain and leiden, and through the
+             sorted-run vote (d_cap 0) with lpm: equal integer round
+             histories, per-member agreement NMI >= 0.99
 5. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
 6. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
              delta=0.02, max_rounds=8, closure_tau=0.2; afterwards
              row_totals at every shape the run launched it at, checked
              as in phase 2 and timed
+7. leiden_lfr10k  bench.py's lfr10k configuration on
+             bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
+             max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
+             peak memory and n_agg_overflow; row_totals per shape as in 6
+8. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
+             size_alpha 0.85, p_in 0.6, p_out 0.02, seed 42): lpm, n_p=50,
+             tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
+             kernel's sorted regime; row_totals per shape as in 6, and the
+             vote's sorted-rank step timed at the run's shape
 
-Kernel launch counters are reset just before phases 5 and 6 and read just
-after: phase 6 must launch ``row_totals``, phase 5 ``fused_move_rows``.
+Kernel launch counters are reset just before phases 5-8 and read just
+after: phases 6-8 must launch ``row_totals``, phase 5 ``fused_move_rows``.
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the device record.
 """
@@ -171,6 +183,33 @@ def check_row_totals(lab, w) -> float:
     return err
 
 
+def check_and_time_shapes(shapes, seed: int):
+    """``row_totals`` at each shape a run gave it, on random rows (the flat
+    regime's work does not depend on the labels; the sorted regime's
+    varies little with them): exact against the plain version, and timed;
+    time lost there is launches x (ms - bound)."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    rng = np.random.default_rng(seed)
+    per_shape = []
+    for (r, d), count in sorted(shapes.items()):
+        lab_c, w_c = random_rows(rng, r, d)
+        check_row_totals(lab_c, w_c)
+        ms = median_ms(lambda: rk.row_totals_cuda(lab_c, w_c))
+        plain = median_ms(lambda: rk.row_totals_plain(lab_c, w_c), runs=5)
+        b, _ = row_totals_bound(r, d)
+        per_shape.append(dict(rows=r, d=d, launches=count, ms=ms,
+                              plain_ms=plain, bound_ms=b,
+                              lost_ms=count * (ms - b)))
+        log(f"  row_totals at [{r}, {d}]: exact; {count} launches, "
+            f"{ms:.4f} ms (plain {plain:.3f} ms), bound {b:.4f} ms, lost "
+            f"{count * (ms - b):.1f} ms")
+        del lab_c, w_c
+    return per_shape
+
+
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
@@ -215,6 +254,9 @@ def phase_kernels(state):
     shapes = [main_shape, (9, 4, 100_000), (25, 12, 100_000)]
     shapes += state.get("extra_widths",
                         [(128, 8, 20_000), (1025, 2, 5_000)])
+    # the LPM dense vote's sorted-regime widths: the emailEu stand-in's
+    # rows (d_cap 176) at n_p 50, and lfr10k's (d_cap 656) for 8 members
+    shapes += state.get("lpm_widths", [(177, 50, 1005), (657, 8, 10_000)])
     # the last flat width, the first sorted one and the one before
     cut = rk.FLAT_MAX_D
     shapes += state.get("cut_widths", [(cut - 1, 1, 60_000),
@@ -304,33 +346,53 @@ def phase_karate(state):
     from fastconsensus_tpu_torch import cli
     from fastconsensus_tpu_torch.utils.io import read_edgelist
 
-    out = OUT / "karate"
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    t0 = time.perf_counter()
-    rc = cli.main(["-f", str(ROOT / "examples" / "karate_club.txt"), "-np",
-                   "20", "--out-dir", str(out), "--quiet", "--device",
-                   DEVICE])
-    check(rc == 0, f"karate CLI exit {rc}")
     _, _, ids = read_edgelist(str(ROOT / "examples" / "karate_club.txt"))
-    _valid_partition_tree(out, 20, len(ids), [int(x) for x in ids])
-    log(f"karate CLI on {DEVICE}: 20 valid partitions in "
-        f"{time.perf_counter() - t0:.2f}s")
+    for alg in ("louvain", "leiden", "lpm"):
+        out = OUT / "karate" / alg
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        t0 = time.perf_counter()
+        rc = cli.main(["-f", str(ROOT / "examples" / "karate_club.txt"),
+                       "-np", "20", "--alg", alg, "--out-dir", str(out),
+                       "--quiet", "--device", DEVICE])
+        check(rc == 0, f"karate CLI --alg {alg} exit {rc}")
+        _valid_partition_tree(out, 20, len(ids), [int(x) for x in ids])
+        log(f"karate CLI --alg {alg} on {DEVICE}: 20 valid partitions in "
+            f"{time.perf_counter() - t0:.2f}s")
 
 
-def _run(edges, n, device, **cfg):
+def _run(edges, n, device, alg="louvain", no_rows=False, peaks=None,
+         **cfg):
+    """One consensus run: ``(result, wall s, per-round s)``.  ``no_rows``
+    packs without a row width (d_cap 0); ``peaks`` collects each round's
+    peak device memory."""
+    import dataclasses
+
+    import torch
+
     from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
                                                    run_consensus)
     from fastconsensus_tpu_torch.graph import pack_edges
     from fastconsensus_tpu_torch.models.registry import get_detector
 
     slab = pack_edges(edges, n, device=device)
+    if no_rows:
+        slab = dataclasses.replace(slab, d_cap=0)
     stamps = []
+
+    def on_round(entry):
+        stamps.append(time.perf_counter())
+        if peaks is not None and DEVICE == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    if peaks is not None and DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
-    res = run_consensus(slab, get_detector("louvain"),
-                        ConsensusConfig(**cfg),
-                        on_round=lambda e: stamps.append(time.perf_counter()))
+    res = run_consensus(slab, get_detector(alg),
+                        ConsensusConfig(algorithm=alg, **cfg),
+                        on_round=on_round)
     sync()
     wall = time.perf_counter() - t0
     per_round = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
@@ -344,26 +406,34 @@ def phase_gpu_cpu(state):
 
     edges, truth = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
                                  hub_degree=600)
-    os.environ["FCTPU_MOVE_PATH"] = "hybrid"
-    try:
-        cfg = dict(n_p=4, tau=0.2, delta=0.02, max_rounds=3, seed=11)
-        g, g_s, _ = _run(edges, 5000, DEVICE, **cfg)
-        c, c_s, _ = _run(edges, 5000, "cpu", **cfg)
-    finally:
-        del os.environ["FCTPU_MOVE_PATH"]
-    agree = [nmi(a, b) for a, b in zip(g.partitions, c.partitions)]
-    same = [bool(np.array_equal(a, b)) for a, b in
-            zip(g.partitions, c.partitions)]
-    log(f"gpu vs cpu (5k planted, hybrid, n_p=4, {g.rounds} rounds): "
-        f"per-member NMI {[round(a, 6) for a in agree]}, identical {same}; "
-        f"{DEVICE} {g_s:.2f}s, cpu {c_s:.2f}s; NMI to truth "
-        f"{np.mean([nmi(p, truth) for p in g.partitions]):.4f}")
-    check(min(agree) >= 0.99, f"gpu/cpu agreement {min(agree)} < 0.99")
     ints = ("n_alive", "n_unconverged", "n_closure_added", "n_repaired",
-            "n_hub_overflow", "capacity", "labels_changed")
-    check([[h[k] for k in ints] for h in g.history] ==
-          [[h[k] for k in ints] for h in c.history],
-          "gpu/cpu round histories differ")
+            "n_hub_overflow", "n_agg_overflow", "capacity", "labels_changed")
+    # (algorithm, how it runs, run settings): louvain and leiden on the
+    # forced hybrid path, lpm packed without rows (the sorted-run vote)
+    for alg, how, cfg in (
+            ("louvain", "hybrid", dict(n_p=4, tau=0.2, max_rounds=3)),
+            ("leiden", "hybrid", dict(n_p=4, tau=0.2, max_rounds=2)),
+            ("lpm", "runs", dict(n_p=4, tau=0.8, max_rounds=2))):
+        cfg = dict(cfg, delta=0.02, seed=11)
+        if how == "hybrid":
+            os.environ["FCTPU_MOVE_PATH"] = "hybrid"
+        try:
+            g, g_s, _ = _run(edges, 5000, DEVICE, alg, how == "runs", **cfg)
+            c, c_s, _ = _run(edges, 5000, "cpu", alg, how == "runs", **cfg)
+        finally:
+            os.environ.pop("FCTPU_MOVE_PATH", None)
+        agree = [nmi(a, b) for a, b in zip(g.partitions, c.partitions)]
+        same = [bool(np.array_equal(a, b)) for a, b in
+                zip(g.partitions, c.partitions)]
+        log(f"gpu vs cpu ({alg}, 5k planted, {how}, n_p=4, {g.rounds} "
+            f"rounds): per-member NMI {[round(a, 6) for a in agree]}, "
+            f"identical {same}; {DEVICE} {g_s:.2f}s, cpu {c_s:.2f}s; NMI to "
+            f"truth {np.mean([nmi(p, truth) for p in g.partitions]):.4f}")
+        check(min(agree) >= 0.99,
+              f"{alg} gpu/cpu agreement {min(agree)} < 0.99")
+        check([[h[k] for k in ints] for h in g.history] ==
+              [[h[k] for k in ints] for h in c.history],
+              f"{alg} gpu/cpu round histories differ")
 
 
 def phase_fused(state):
@@ -388,6 +458,33 @@ def phase_fused(state):
     state["launches_fused"] = launches
 
 
+def cell_inputs(name: str, state):
+    """``(edges, truth labels, algorithm, run settings)`` of a main-path
+    cell: bench.py's planted100k (lfr100k), lfr10k and emailEu configs."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.utils import synth
+
+    if name == "lpm_emaileu":
+        sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
+        edges, truth = synth.planted_partition(1005, 42, 0.6, 0.02, seed=42,
+                                               sizes=sizes)
+        return edges, truth, "lpm", dict(n_p=state.get("lpm_n_p", 50),
+                                         tau=0.8, delta=0.02, seed=0)
+    data = np.load(ROOT / "bench_data" / f"{name.split('_')[-1]}.npz")
+    edges, truth = data["edges"], data["labels"]
+    if name == "leiden_lfr10k":
+        return edges, truth, "leiden", dict(
+            n_p=state.get("leiden_n_p", 100), tau=0.2, delta=0.02,
+            max_rounds=state["leiden_rounds"], seed=0, closure_tau=0.2)
+    if state.get("nodes"):       # rehearsal only: a prefix of the graph
+        edges = edges[(edges < state["nodes"]).all(axis=1)]
+        truth = truth[:state["nodes"]]
+    return edges, truth, "louvain", dict(
+        n_p=state["n_p"], tau=0.2, delta=0.02,
+        max_rounds=state["max_rounds"], seed=0, closure_tau=0.2)
+
+
 def phase_lfr100k(state):
     import numpy as np
     import torch
@@ -395,22 +492,15 @@ def phase_lfr100k(state):
     from fastconsensus_tpu_torch.ops import row_kernels as rk
     from fastconsensus_tpu_torch.utils.metrics import nmi
 
-    data = np.load(ROOT / "bench_data" / "lfr100k.npz")
-    edges, truth = data["edges"], data["labels"]
+    edges, truth, _, cfg = cell_inputs("lfr100k", state)
     n = int(truth.shape[0])
     n_p = state["n_p"]
-    if state.get("nodes"):       # rehearsal only: a prefix of the graph
-        n = state["nodes"]
-        edges = edges[(edges < n).all(axis=1)]
-        truth = truth[:n]
     if n_p != 200:
         log(f"lfr100k: n_p cut 200 -> {n_p} to fit the time limit")
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rk.reset_launches()
-    res, wall, per_round = _run(
-        edges, n, DEVICE, n_p=n_p, tau=0.2, delta=0.02,
-        max_rounds=state["max_rounds"], seed=0, closure_tau=0.2)
+    res, wall, per_round = _run(edges, n, DEVICE, **cfg)
     launches = dict(rk.LAUNCHES)
     shapes = dict(rk.ROW_TOTALS_SHAPES)
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
@@ -430,44 +520,112 @@ def phase_lfr100k(state):
         f"row_totals_launches_by_shape={sorted(shapes.items())} "
         f"partitions_sha1={digest}")
     check(launches["row_totals"] > 0, "lfr100k never launched row_totals")
-    # the kernel at each shape the run gave it, on random rows (the flat
-    # regime's work does not depend on the labels): exact against the
-    # plain version, and timed; time lost there is launches x (ms - bound)
-    rng = np.random.default_rng(1)
-    per_shape = []
-    for (r, d), count in sorted(shapes.items()):
-        lab_c, w_c = random_rows(rng, r, d)
-        check_row_totals(lab_c, w_c)
-        ms = median_ms(lambda: rk.row_totals_cuda(lab_c, w_c))
-        b, _ = row_totals_bound(r, d)
-        per_shape.append(dict(rows=r, d=d, launches=count, ms=ms,
-                              bound_ms=b, lost_ms=count * (ms - b)))
-        log(f"  row_totals at [{r}, {d}]: exact; {count} launches, "
-            f"{ms:.4f} ms, bound {b:.4f} ms, lost {count * (ms - b):.1f} ms")
-        del lab_c, w_c
+    per_shape = check_and_time_shapes(shapes, seed=1)
     check(len(res.partitions) == n_p and all(
         p.shape == (n,) for p in res.partitions), "partition shapes")
-    state["launches_main"] = launches
-    state["row_shapes_seen"] = per_shape
+    state.setdefault("main_paths", {})["lfr100k"] = dict(
+        launches=launches["row_totals"], by_shape=per_shape)
     state["lfr100k"] = dict(rounds=res.rounds, converged=res.converged,
                             wall_s=wall, per_round_s=per_round,
                             nmi_mean=float(np.mean(scores)),
                             max_memory_allocated=peak)
 
 
-def phase_profile(state):
-    """Not a default phase: one lfr100k consensus run (``--max-rounds``,
-    ``--n-p``) under torch.profiler, printing the device time by kernel
-    and the share of the wall during which the device was busy."""
+def _main_path_run(state, name):
+    """Drive one cell's consensus run with the launch counters reset just
+    before and read just after; log what a user would see and the
+    per-round memory and aggregate overflow; check and time each kernel
+    shape."""
     import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.utils.metrics import nmi
+
+    edges, truth, alg, cfg = cell_inputs(name, state)
+    n = int(truth.shape[0])
+    peaks = []
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rk.reset_launches()
+    res, wall, per_round = _run(edges, n, DEVICE, alg, peaks=peaks, **cfg)
+    launches = dict(rk.LAUNCHES)
+    shapes = dict(rk.ROW_TOTALS_SHAPES)
+    final_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" \
+        else None
+    scores = [nmi(p, truth) for p in res.partitions]
+    for i, h in enumerate(res.history):
+        log(f"  round {h['round']}: {h['n_alive']} alive, "
+            f"{h['n_unconverged']} unconverged, cold={h['cold']}, overflow "
+            f"{h['n_overflow']}/{h['n_hub_overflow']}, n_agg_overflow "
+            f"{h['n_agg_overflow']}, capacity {h['capacity']}, "
+            f"{per_round[i]:.3f}s, max_memory_allocated "
+            f"{peaks[i] if i < len(peaks) else None}")
+    log(f"{name}: {alg} N={n} E={edges.shape[0]} n_p={cfg['n_p']} "
+        f"rounds={res.rounds} converged={res.converged} wall={wall:.2f}s "
+        f"per_round={[round(x, 3) for x in per_round]} "
+        f"final_detect_s={wall - sum(per_round):.3f} "
+        f"nmi_mean={np.mean(scores):.4f} nmi_min={min(scores):.4f} "
+        f"max_memory_allocated={max(peaks + [final_peak or 0])} "
+        f"launches={launches} "
+        f"row_totals_launches_by_shape={sorted(shapes.items())}")
+    log(f"{name}: member NMI to the file's labels "
+        f"{[round(x, 4) for x in scores]}")
+    check(launches["row_totals"] > 0, f"{name} never launched row_totals")
+    check(len(res.partitions) == cfg["n_p"] and all(
+        p.shape == (n,) and p.min() >= 0 for p in res.partitions),
+        f"{name}: partition shapes")
+    per_shape = check_and_time_shapes(shapes, seed=2)
+    state.setdefault("main_paths", {})[name] = dict(
+        launches=launches["row_totals"], by_shape=per_shape)
+    return res, wall, shapes
+
+
+def phase_leiden_lfr10k(state):
+    rounds = state["leiden_rounds"]
+    if rounds != 16:
+        log(f"leiden_lfr10k: max_rounds cut 16 -> {rounds} to fit the time "
+            f"limit")
+    _main_path_run(state, "leiden_lfr10k")
+
+
+def phase_lpm_emaileu(state):
+    import numpy as np
+
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.ops import dense_adj as da
+
+    edges = cell_inputs("lpm_emaileu", state)[0]
+    d_cap = pack_edges(edges, 1005, device="cpu").d_cap
+    check(d_cap == 176, f"emailEu stand-in d_cap {d_cap}, expected 176")
+    _, _, shapes = _main_path_run(state, "lpm_emaileu")
+    # the vote's sorted-rank step (the JAX CPU tie-break order) at the
+    # run's widest shape, on random rows, beside the kernel there
+    r, d = max(shapes, key=lambda rd: rd[0] * rd[1])
+    lab, w = random_rows(np.random.default_rng(3), r, d)
+    ms = median_ms(lambda: da.sorted_rank(lab))
+    kernel_ms = median_ms(lambda: da.row_kernels.row_totals_cuda(lab, w))
+    log(f"lpm_emaileu: sorted-rank step at [{r}, {d}]: {ms:.4f} ms "
+        f"(row_totals there {kernel_ms:.4f} ms)")
+    state["rank_ms"] = dict(rows=r, d=d, ms=ms, row_totals_ms=kernel_ms)
+
+
+def phase_profile(state):
+    """Not a default phase: one cell's consensus run (``--profile-cell``,
+    default lfr100k; ``--n-p``, ``--max-rounds`` or ``--leiden-rounds``)
+    under torch.profiler, printing the device time by kernel and the
+    share of the wall during which the device was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fastconsensus_tpu_torch import engine
-    from fastconsensus_tpu_torch.models import louvain as lv
+    from fastconsensus_tpu_torch.models import leiden, louvain, lpm
 
-    data = np.load(ROOT / "bench_data" / "lfr100k.npz")
-    edges, truth = data["edges"], data["labels"]
+    cell = state.get("profile_cell", "lfr100k")
+    edges, truth, alg, cfg = cell_inputs(cell, state)
+    det_mod, det_fn = {"louvain": (louvain, "louvain_members"),
+                       "leiden": (leiden, "leiden_members"),
+                       "lpm": (lpm, "lpm_members")}[alg]
     calls = {"detect": [], "tail": []}
 
     def timed(layer, fn):
@@ -480,20 +638,19 @@ def phase_profile(state):
             return out
         return wrapper
 
-    saved = (lv.louvain_members, engine.consensus_tail)
-    lv.louvain_members = timed("detect", lv.louvain_members)
+    saved = (getattr(det_mod, det_fn), engine.consensus_tail)
+    setattr(det_mod, det_fn, timed("detect", saved[0]))
     engine.consensus_tail = timed("tail", engine.consensus_tail)
     sync()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res, wall, per_round = _run(
-                edges, int(truth.shape[0]), DEVICE, n_p=state["n_p"],
-                tau=0.2, delta=0.02, max_rounds=state["max_rounds"], seed=0,
-                closure_tau=0.2)
+            res, wall, per_round = _run(edges, int(truth.shape[0]), DEVICE,
+                                        alg, **cfg)
             t_end = time.perf_counter()
     finally:
-        lv.louvain_members, engine.consensus_tail = saved
+        setattr(det_mod, det_fn, saved[0])
+        engine.consensus_tail = saved[1]
     # the final re-detection is everything after the last round's stamp
     final_s = wall - sum(per_round)
     last_stamp = t_end - final_s
@@ -501,7 +658,7 @@ def phase_profile(state):
                              if t < last_stamp),
                "tail": sum(dt for _, dt in calls["tail"]),
                "final_detect": final_s}
-    log(f"profile: host seconds by layer {layer_s}")
+    log(f"profile {cell}: host seconds by layer {layer_s}")
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -519,19 +676,20 @@ def phase_profile(state):
         f"({busy / 1e6 / wall:.1%} of wall), {len(spans)} kernels")
     table = prof.key_averages().table(sort_by="device_time_total",
                                       row_limit=25)
-    (OUT / "profile_table.txt").write_text(table)
+    (OUT / f"profile_table_{cell}.txt").write_text(table)
     log(table)
 
 
 def kernels_line(state) -> str:
-    main = state.get("launches_main", {})
+    paths = state.get("main_paths", {})
     fused = state.get("launches_fused", {})
     rows = state["kernel_rows"]
     src = "fastconsensus_tpu_torch/ops/csrc"
     out = []
     for name, replaces, launches, counted_on in (
             ("row_totals", "fastconsensus_tpu/ops/pallas_kernels.py:179",
-             main.get("row_totals", 0), "lfr100k"),
+             sum(p["launches"] for p in paths.values()),
+             "+".join(paths) or "none"),
             ("fused_move_rows", "fastconsensus_tpu/ops/pallas_kernels.py:136",
              fused.get("fused_move_rows", 0), "fused dense path")):
         first = rows[name][0]
@@ -543,8 +701,10 @@ def kernels_line(state) -> str:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None, "shape": [first["rows"], first["d"]],
             "launches_counted_on": counted_on,
-            "launches_by_shape": (state.get("row_shapes_seen", [])
-                                  if name == "row_totals" else []),
+            "launches_by_path": ({k: {"launches": p["launches"],
+                                      "by_shape": p["by_shape"]}
+                                  for k, p in paths.items()}
+                                 if name == "row_totals" else {}),
             "other_shapes": [{k: r[k] for k in ("rows", "d", "ms", "plain_ms",
                                                 "bound_ms", "bound_by")}
                              for r in rows[name][1:]]})
@@ -565,7 +725,9 @@ def smi_line() -> str:
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
           "karate": phase_karate, "gpu_cpu": phase_gpu_cpu,
-          "fused": phase_fused, "lfr100k": phase_lfr100k}
+          "fused": phase_fused, "lfr100k": phase_lfr100k,
+          "leiden_lfr10k": phase_leiden_lfr10k,
+          "lpm_emaileu": phase_lpm_emaileu}
 EXTRA_PHASES = {"profile": phase_profile}
 
 
@@ -576,6 +738,12 @@ def main(argv=None) -> int:
                         f"and the optional {', '.join(EXTRA_PHASES)}")
     p.add_argument("--n-p", type=int, default=200)
     p.add_argument("--max-rounds", type=int, default=8)
+    p.add_argument("--leiden-rounds", type=int, default=16,
+                   help="leiden_lfr10k's max_rounds (default 16, "
+                        "bench.py's)")
+    p.add_argument("--profile-cell", default="lfr100k",
+                   choices=("lfr100k", "leiden_lfr10k", "lpm_emaileu"),
+                   help="the cell phase profile runs")
     args = p.parse_args(argv)
     try:
         import torch
@@ -593,7 +761,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     OUT.mkdir(parents=True, exist_ok=True)
-    state = {"n_p": args.n_p, "max_rounds": args.max_rounds}
+    state = {"n_p": args.n_p, "max_rounds": args.max_rounds,
+             "leiden_rounds": args.leiden_rounds,
+             "profile_cell": args.profile_cell}
     phases = [s for s in args.phases.split(",") if s]
     t_all = time.perf_counter()
     for name in phases:

@@ -7,8 +7,9 @@ Flags: ``-f -np -t -d --alg --seed --max-rounds --out-dir --closure-tau
 --quiet`` as in the reference, plus ``--device`` (default ``cuda``; the run
 fails rather than fall back when CUDA is missing).  Output trees are the
 reference's: ``out_partitions_t{t}_d{d}_np{np}/{1..n_p}`` and
-``memberships_t{t}_d{d}_np{np}/{0..n_p-1}``.  Only ``--alg louvain`` is
-ported; the others exit with a "not yet ported" error.
+``memberships_t{t}_d{d}_np{np}/{0..n_p-1}``.  ``--alg louvain``, ``lpm``
+and ``leiden`` are ported; ``cnm`` and ``infomap`` (host C++ in the
+reference) exit with a "not yet ported" error.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=0.02, help="convergence parameter (default: 0.02)")
     p.add_argument("--alg", metavar="alg", type=str, default="louvain",
                    choices=ALGORITHMS,
-                   help=f"one of {', '.join(ALGORITHMS)} (only louvain is "
-                        f"ported)")
+                   help=f"one of {', '.join(ALGORITHMS)} (cnm and infomap "
+                        f"are not ported yet)")
     p.add_argument("--seed", type=int, default=0,
                    help="PRNG seed for the whole run (default: 0)")
     p.add_argument("--max-rounds", type=int, default=64,

@@ -10,6 +10,12 @@ the same path on the same graph.
 
 Indices are held as int64 (torch's indexing type); values are the same as
 the reference's int32 arrays.
+
+A slab may be member-batched: any of ``src``/``dst``/``weight``/``alive``
+may carry a leading ensemble dimension (``[M, capacity]``), as the
+reference's slabs do under its ensemble ``vmap`` when each member masks or
+aggregates the graph its own way (Leiden's refinement and aggregate
+levels).  Per-node reductions then return ``[M, n_nodes]``.
 """
 
 from __future__ import annotations
@@ -34,10 +40,10 @@ class GraphSlab:
     The static fields mirror the reference's (see its GraphSlab docstring).
     """
 
-    src: torch.Tensor     # int64[capacity]
-    dst: torch.Tensor     # int64[capacity]
-    weight: torch.Tensor  # float32[capacity]
-    alive: torch.Tensor   # bool[capacity]
+    src: torch.Tensor     # int64[capacity] or [M, capacity]
+    dst: torch.Tensor     # int64[capacity] or [M, capacity]
+    weight: torch.Tensor  # float32[capacity] or [M, capacity]
+    alive: torch.Tensor   # bool[capacity] or [M, capacity]
     n_nodes: int
     d_cap: int = 0
     cap_hint: int = 0
@@ -47,14 +53,31 @@ class GraphSlab:
 
     @property
     def capacity(self) -> int:
-        return self.src.shape[0]
+        return self.src.shape[-1]
 
     @property
     def device(self) -> torch.device:
         return self.src.device
 
+    @property
+    def batch(self) -> torch.Size:
+        """Leading member dimensions: ``()`` for one shared slab."""
+        return torch.broadcast_shapes(
+            *(t.shape[:-1] for t in (self.src, self.dst, self.weight,
+                                     self.alive)))
+
     def num_alive(self) -> torch.Tensor:
-        return self.alive.sum()
+        return self.alive.sum(dim=-1)
+
+    def take(self, idx: torch.Tensor) -> "GraphSlab":
+        """The members ``idx`` of a member-batched slab (shared fields
+        stay shared)."""
+        def pick(t):
+            return t[idx] if t.dim() > 1 else t
+
+        return dataclasses.replace(
+            self, src=pick(self.src), dst=pick(self.dst),
+            weight=pick(self.weight), alive=pick(self.alive))
 
     def with_weights(self, weight: torch.Tensor,
                      alive: Optional[torch.Tensor] = None) -> "GraphSlab":
@@ -64,40 +87,47 @@ class GraphSlab:
     def directed(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
         """Both orientations of every slot: (srcd, dstd, weightd, alived),
-        each of length 2*capacity."""
-        return (torch.cat([self.src, self.dst]),
-                torch.cat([self.dst, self.src]),
-                torch.cat([self.weight, self.weight]),
-                torch.cat([self.alive, self.alive]))
+        each of length 2*capacity along the last axis."""
+        return (torch.cat([self.src, self.dst], dim=-1),
+                torch.cat([self.dst, self.src], dim=-1),
+                torch.cat([self.weight, self.weight], dim=-1),
+                torch.cat([self.alive, self.alive], dim=-1))
 
     def degrees(self) -> torch.Tensor:
-        """Alive-degree per node, int64[n_nodes]."""
+        """Alive-degree per node (a self-loop counts twice), int64[*batch,
+        n_nodes]."""
         srcd, _, _, ad = self.directed()
-        return torch.bincount(srcd[ad], minlength=self.n_nodes)[:self.n_nodes]
+        return _node_sum(self.n_nodes, srcd, ad, ad.to(torch.int64))
 
     def strengths(self) -> torch.Tensor:
-        """Weighted degree per node, float32[n_nodes]."""
+        """Weighted degree per node, float32[*batch, n_nodes]."""
         srcd, _, wd, ad = self.directed()
-        return exact_index_sum(self.n_nodes, srcd[ad], wd[ad])
+        return _node_sum(self.n_nodes, srcd, ad,
+                         torch.where(ad, wd, 0.0).double()
+                         ).to(torch.float32)
 
     def total_weight(self) -> torch.Tensor:
-        """Sum of the alive directed weights (2m), float32[]."""
+        """Sum of the alive directed weights (2m), float32[*batch]."""
         _, _, wd, ad = self.directed()
-        return torch.where(ad, wd, 0.0).double().sum().to(torch.float32)
+        return torch.where(ad, wd, 0.0).double().sum(dim=-1).to(
+            torch.float32)
 
 
-def exact_index_sum(n: int, index: torch.Tensor, values: torch.Tensor
-                    ) -> torch.Tensor:
-    """``out[index[i]] += values[i]`` over ``n`` bins, as float32.
+def _node_sum(n: int, srcd: torch.Tensor, ad: torch.Tensor,
+              values: torch.Tensor) -> torch.Tensor:
+    """``values`` summed per alive source node along the last axis.
 
     The main path's weights are integer counts, but their sums (community
     strengths, 2m) pass float32's 2**24 integer range on large graphs,
     where float32 atomic adds would round in an order that changes from
-    run to run on the card.  Accumulating in float64 keeps integer sums
-    exact (to 2**53), so the result is the same on every run and device;
-    below 2**24 it equals the reference's float32 sum."""
-    out = torch.zeros(n, dtype=torch.float64, device=values.device)
-    return out.index_add_(0, index, values.double()).to(torch.float32)
+    run to run on the card.  Float values are therefore summed as float64
+    (exact to 2**53), the same on every run and device; below 2**24 the
+    float32 result equals the reference's float32 sum."""
+    seg = torch.where(ad, srcd, n)
+    seg, values = torch.broadcast_tensors(seg, values)
+    out = torch.zeros(seg.shape[:-1] + (n + 1,), dtype=values.dtype,
+                      device=values.device)
+    return out.scatter_add_(-1, seg, values)[..., :n]
 
 
 def derive_dense_sizing(degree: np.ndarray, n_nodes: int) -> int:
@@ -148,6 +178,32 @@ def derive_agg_sizing(n_alive: int) -> int:
 def agg_compaction_active(slab: GraphSlab) -> bool:
     """Would the aggregate level compact (drives ``n_agg_overflow``)?"""
     return 0 < slab.agg_cap < (slab.cap_hint or slab.capacity)
+
+
+def compact_alive(slab: GraphSlab, cap: int) -> GraphSlab:
+    """Pack each member's alive edges, in slot order, into a fresh slab of
+    capacity ``cap``; alive edges ranked beyond ``cap`` are dropped (the
+    engine reports the bound as ``n_agg_overflow``).  The result carries
+    no dense/hybrid sizing and ``cap_hint = cap``."""
+    alive = slab.alive
+    pos = torch.cumsum(alive.to(torch.int64), dim=-1) - 1
+    ok = alive & (pos < cap)
+    tgt = torch.where(ok, pos, cap)
+
+    def scat(x):
+        x, t = torch.broadcast_tensors(x, tgt)
+        buf = torch.zeros(t.shape[:-1] + (cap + 1,), dtype=x.dtype,
+                          device=x.device)
+        # rejected slots all land in the spill slot ``cap``, sliced off
+        return buf.scatter_(-1, t, torch.where(ok, x, 0))[..., :cap]
+
+    n_keep = slab.num_alive().clamp(max=cap)
+    slot = torch.arange(cap, device=alive.device)
+    return GraphSlab(src=scat(slab.src), dst=scat(slab.dst),
+                     weight=scat(slab.weight),
+                     alive=slot < n_keep[..., None],
+                     n_nodes=slab.n_nodes, d_cap=0, cap_hint=cap, d_hyb=0,
+                     hub_cap=0, agg_cap=0)
 
 
 def pack_edges(edges: np.ndarray, n_nodes: int,

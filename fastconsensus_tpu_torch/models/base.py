@@ -24,19 +24,21 @@ class Detector(Protocol):
                  ) -> torch.Tensor: ...
 
 
-def ensemble(run: Callable, prepare: Callable[[GraphSlab], object]
+def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
+             member_bytes: Optional[Callable[[GraphSlab], int]] = None
              ) -> Detector:
     """Lift a member-batched kernel to the ensemble.
 
     ``prepare(slab)`` builds the label-independent inputs once per call
     (adjacency rows, strengths); ``run(prep, keys[M, 2], init[M, N] or
-    None)`` runs M members.  The lifted detector takes ``init_labels`` to
-    warm-start member i from ``init_labels[i]``."""
+    None)`` runs M members; ``member_bytes(slab)`` bounds one member's
+    temporaries (default: a Louvain sweep's).  The lifted detector takes
+    ``init_labels`` to warm-start member i from ``init_labels[i]``."""
 
     def detect(slab: GraphSlab, keys: torch.Tensor,
                init_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         n_p = keys.shape[0]
-        chunk = members_per_call(slab, n_p)
+        chunk = members_per_call(slab, n_p, member_bytes)
         prep = prepare(slab)
         parts = []
         for s in range(0, n_p, chunk):

@@ -1,18 +1,19 @@
 """Algorithm dispatch: the ``--alg`` seam.
 
-Only Louvain is ported so far; the reference's other detectors (lpm,
-leiden, cnm, infomap) raise a clear "not yet ported" error.
+Louvain, LPM and Leiden are ported; the reference's host C++ detectors
+(cnm, infomap) raise a clear "not yet ported" error.
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Callable, Dict
 
 from fastconsensus_tpu_torch.models.base import Detector
 
 _REGISTRY: Dict[str, Callable[..., Detector]] = {}
-NOT_YET_PORTED = ("lpm", "leiden", "cnm", "infomap")
+NOT_YET_PORTED = ("cnm", "infomap")
 
 
 def register(name: str):
@@ -27,8 +28,6 @@ def available() -> list:
 
 
 def supports_param(name: str, param: str) -> bool:
-    import inspect
-
     _check(name)
     return param in inspect.signature(_REGISTRY[name]).parameters
 
@@ -51,10 +50,25 @@ def get_detector(name: str, gamma: float = 1.0) -> Detector:
 
 @functools.lru_cache(maxsize=64)
 def _get_cached(name: str, gamma: float) -> Detector:
-    return _REGISTRY[name](gamma=gamma)
+    factory = _REGISTRY[name]
+    if "gamma" in inspect.signature(factory).parameters:
+        return factory(gamma=gamma)
+    return factory()
+
+
+@register("lpm")
+def _lpm() -> Detector:
+    from fastconsensus_tpu_torch.models.lpm import lpm
+    return lpm
 
 
 @register("louvain")
 def _louvain(gamma: float = 1.0) -> Detector:
     from fastconsensus_tpu_torch.models.louvain import louvain, make_louvain
     return louvain if gamma == 1.0 else make_louvain(gamma=gamma)
+
+
+@register("leiden")
+def _leiden(gamma: float = 1.0) -> Detector:
+    from fastconsensus_tpu_torch.models.leiden import leiden, make_leiden
+    return leiden if gamma == 1.0 else make_leiden(gamma=gamma)

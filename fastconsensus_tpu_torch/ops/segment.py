@@ -1,5 +1,6 @@
-"""Per-(node, label) aggregation primitives: hashed sum tables, scatter
-argmax, content-keyed jitter, label compaction.
+"""Per-(node, label) aggregation primitives: the exact sorted-run
+reduction, hashed sum tables, scatter argmax, content-keyed jitter, Gumbel
+noise, label compaction.
 
 Counterpart of ``fastconsensus_tpu/ops/segment.py``.  Every function takes
 an optional leading batch of ensemble members: arrays are ``[*B, K]`` and
@@ -9,9 +10,6 @@ become scatters into a buffer with one spill slot that is sliced off;
 buffer whose identity is set explicitly.  Float sums here only ever add
 integer-valued weights (co-membership counts), so atomic scatter-adds are
 exact in any order.
-
-The sorted-run reduction (``node_label_runs``) and the theta/Gumbel
-scoring helpers belong to the Leiden slice and are not here yet.
 """
 
 from __future__ import annotations
@@ -51,6 +49,50 @@ def gather_last(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     if index.dim() < table.dim():
         index = index.expand(*table.shape[:-1], index.shape[-1])
     return torch.gather(table, -1, index)
+
+
+class Runs(NamedTuple):
+    """Aggregated (node, label) runs, ``[*B, E]``, masked by ``valid``;
+    runs are in (node, label) order, valid ones first."""
+
+    node: torch.Tensor   # int64; n_nodes for invalid runs
+    label: torch.Tensor  # int64; 0 for invalid runs
+    total: torch.Tensor  # float32; sum of the run's values
+    valid: torch.Tensor  # bool
+
+
+def node_label_runs(node, label, value, valid, n_nodes: int) -> Runs:
+    """Aggregate ``value`` per distinct (node, label) pair along the last
+    axis: a stable sort by (node, label) and segmented sums, as the
+    reference's lexsort.  Invalid entries sort to the end (node :=
+    n_nodes) and never merge with real runs.  Sums accumulate in float64
+    (exact for integer weights, see graph._node_sum)."""
+    node, label, value, valid = torch.broadcast_tensors(
+        node, label, value, valid)
+    e = node.shape[-1]
+    node_m = torch.where(valid, node, n_nodes)
+    label_m = torch.where(valid, label, 0)
+    value_m = torch.where(valid, value, 0.0).to(torch.float32)
+    # (node, int32 label) as one int64 key in lexicographic order
+    key = node_m * (1 << 32) + (label_m + (1 << 31))
+    order = torch.argsort(key, dim=-1, stable=True)
+    ns = torch.gather(node_m, -1, order)
+    ls = torch.gather(label_m, -1, order)
+    vs = torch.gather(value_m, -1, order)
+    new_run = torch.ones_like(valid)
+    new_run[..., 1:] = (ns[..., 1:] != ns[..., :-1]) | \
+        (ls[..., 1:] != ls[..., :-1])
+    run_id = torch.cumsum(new_run.to(torch.int64), dim=-1) - 1
+    total = _flat_scatter(node.shape, run_id, vs.double()).to(torch.float32)
+    count = _flat_scatter(node.shape, run_id, torch.ones_like(run_id))
+    head_at = torch.where(new_run, run_id, e)
+    # one head per run: a sum into zeros writes its value exactly
+    run_node = _flat_scatter(node.shape, head_at, ns)
+    run_label = _flat_scatter(node.shape, head_at, ls)
+    run_valid = (count > 0) & (run_node < n_nodes)
+    return Runs(node=torch.where(run_valid, run_node, n_nodes),
+                label=torch.where(run_valid, run_label, 0),
+                total=torch.where(run_valid, total, 0.0), valid=run_valid)
 
 
 class HashTables(NamedTuple):
@@ -162,6 +204,22 @@ def pair_jitter(key: torch.Tensor, node, label, scale) -> torch.Tensor:
     m = m ^ (m >> 13)
     # top 24 bits -> exact float32 in [0, 1), times scale / 2**24
     return (m >> 8).to(torch.float32) * (scale / float(1 << 24))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` from uniforms in [0, 1),
+    float32 at every step as in the reference, with each ``log`` taken in
+    float64 and rounded once: the same bits on every device, within about
+    1e-6 of the reference's float32 logs (whose own rounding varies by
+    backend)."""
+    u = u.clamp(1e-7, 1.0 - 1e-7)
+    inner = torch.log(u.double()).to(torch.float32)
+    return -torch.log((-inner).double()).to(torch.float32)
+
+
+def uniform_jitter(key: torch.Tensor, shape, scale: float) -> torch.Tensor:
+    """Keyed per-position noise in [0, scale): ``[*B, *shape]``."""
+    return prng.uniform(key, shape) * scale
 
 
 def compact_labels(labels: torch.Tensor, n_nodes: int) -> torch.Tensor:

@@ -10,18 +10,24 @@ because detectors are per-key independent.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.utils.env import env_int
 
 
-def members_per_call(slab: GraphSlab, n_p: int) -> int:
-    """Members run at once: per-sweep temporaries within
-    FCTPU_ENSEMBLE_BUDGET_MB (default 2048), or FCTPU_ENSEMBLE_CHUNK
-    (<= 0: no chunking)."""
-    from fastconsensus_tpu_torch.models import louvain
-
+def members_per_call(slab: GraphSlab, n_p: int,
+                     member_bytes: Optional[Callable[[GraphSlab], int]] = None
+                     ) -> int:
+    """Members run at once: one member's temporaries (``member_bytes``,
+    default a Louvain sweep's) within FCTPU_ENSEMBLE_BUDGET_MB (default
+    2048), or FCTPU_ENSEMBLE_CHUNK (<= 0: no chunking)."""
     c = env_int("FCTPU_ENSEMBLE_CHUNK")
     if c is not None:
         return n_p if c <= 0 else min(c, n_p)
+    if member_bytes is None:
+        from fastconsensus_tpu_torch.models import louvain
+
+        member_bytes = louvain.sweep_temp_bytes
     budget = env_int("FCTPU_ENSEMBLE_BUDGET_MB", 2048) << 20
-    return max(1, min(n_p, budget // max(1, louvain.sweep_temp_bytes(slab))))
+    return max(1, min(n_p, budget // max(1, member_bytes(slab))))

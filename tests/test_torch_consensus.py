@@ -162,10 +162,49 @@ def test_cli_output_trees_byte_identical(monkeypatch, tmp_path):
         assert mismatch == [] and errors == [], (tree, mismatch, errors)
 
 
+@pytest.mark.parametrize("alg", ["lpm", "leiden"])
+def test_run_consensus_karate_identical_by_alg(monkeypatch, karate_slab,
+                                               alg):
+    """LPM (no key alignment) and Leiden (theta refinement cold, greedy
+    warm and refresh variants) through the same driver."""
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
+    cfg = dict(algorithm=alg, n_p=6, tau={"lpm": 0.8, "leiden": 0.2}[alg],
+               delta=0.02, max_rounds=3, seed=2)
+    jres = jrun(karate_slab, jdetector(alg), JConfig(**cfg))
+    tres = run_consensus(port_slab(karate_slab), get_detector(alg),
+                         ConsensusConfig(**cfg))
+    assert len(jres.history) >= 1
+    _compare_runs(jres, tres)
+
+
+@pytest.mark.parametrize("alg", ["lpm", "leiden"])
+def test_cli_output_trees_byte_identical_by_alg(monkeypatch, tmp_path, alg):
+    from fastconsensus_tpu import cli as jcli
+    from fastconsensus_tpu_torch import cli as tcli
+
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
+    args = ["-f", str(KARATE), "-np", "6", "--max-rounds", "3", "--seed",
+            "2", "--alg", alg, "--quiet"]
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    assert jcli.main(args + ["--out-dir", str(tmp_path / "ref")]) == 0
+    assert tcli.main(args + ["--out-dir", str(tmp_path / "port"),
+                             "--device", "cpu"]) == 0
+    trees = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert trees == sorted(p.name for p in (tmp_path / "port").iterdir())
+    for tree in trees:
+        files = sorted(os.listdir(tmp_path / "ref" / tree))
+        assert len(files) == 6
+        match, mismatch, errors = filecmp.cmpfiles(
+            tmp_path / "ref" / tree, tmp_path / "port" / tree, files,
+            shallow=False)
+        assert mismatch == [] and errors == [], (tree, mismatch, errors)
+
+
 def test_cli_rejects_unported_algorithm_and_missing_cuda(tmp_path, capsys):
     from fastconsensus_tpu_torch import cli as tcli
 
-    rc = tcli.main(["-f", str(KARATE), "--alg", "leiden", "--device", "cpu",
+    rc = tcli.main(["-f", str(KARATE), "--alg", "cnm", "--device", "cpu",
                     "--out-dir", str(tmp_path)])
     assert rc == 2 and "not yet ported" in capsys.readouterr().err
     if not torch.cuda.is_available():

@@ -125,6 +125,78 @@ def test_fused_move_rows_kernel_matches_plain(card, seed, d_self):
     assert 0 < int(want.sum()) < n
 
 
+def lpm_rows(device, graph):
+    """Dense rows the LPM vote gives ``row_totals`` ([M * N, D + 1] with
+    the own-label slot), from two members' labels after three votes:
+    the emailEu stand-in's rows (D = 177) or lfr10k's (D = 657)."""
+    from pathlib import Path
+
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models import lpm
+    from fastconsensus_tpu_torch.ops import dense_adj as da
+    from fastconsensus_tpu_torch.utils import prng, synth
+
+    if graph == "emaileu":
+        sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
+        edges, _ = synth.planted_partition(1005, 42, 0.6, 0.02, seed=42,
+                                           sizes=sizes)
+        n = 1005
+    else:
+        z = np.load(Path(__file__).resolve().parent.parent / "bench_data" /
+                    "lfr10k.npz")
+        edges, n = z["edges"], 10_000
+    slab = pack_edges(edges, n, device=device)
+    keys = prng.partition_keys(prng.key(3, device), 2)
+    labels = lpm.lpm_members(lpm.Prepared(slab), keys, max_iters=3)
+    adj = da.build_dense_adjacency(slab)
+    lab = torch.where(adj.valid, da.row_gather(labels, adj.nbr), SENT)
+    lab = torch.cat([lab, labels[:, :, None]], dim=2).to(torch.int32)
+    w = torch.cat([torch.where(adj.valid, adj.w, 0.0),
+                   adj.w.new_zeros((n, 1))], dim=1).expand(2, n, -1)
+    d1 = slab.d_cap + 1
+    return lab.reshape(2 * n, d1).contiguous(), \
+        w.reshape(2 * n, d1).contiguous()
+
+
+@pytest.mark.parametrize("graph,d", [("emaileu", 177), ("lfr10k", 657)])
+def test_row_totals_kernel_on_lpm_rows(card, graph, d):
+    """The sorted regime at the LPM paths' widths, on real vote rows."""
+    lab, w = lpm_rows(card, graph)
+    assert lab.shape[1] == d
+    total, head = rk.row_totals_cuda(lab, w)
+    torch.cuda.synchronize()
+    p_total, p_head = rk.row_totals_plain(lab, w)
+    assert torch.equal(total, p_total) and torch.equal(head, p_head)
+
+
+@pytest.mark.parametrize("alg", ["lpm", "leiden"])
+def test_lpm_and_leiden_on_card_equal_cpu(card, alg):
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+
+    rng = np.random.default_rng(6)
+    n = 1500
+    truth = rng.integers(0, 10, n)
+    src, dst = rng.integers(0, n, (2, 30000))
+    keep = (truth[src] == truth[dst]) | (rng.random(30000) < 0.03)
+    edges = np.stack([src[keep], dst[keep]], 1)
+    cfg = ConsensusConfig(algorithm=alg, n_p=4, max_rounds=2, seed=5,
+                          tau={"lpm": 0.8, "leiden": 0.2}[alg])
+    runs = []
+    for dev in ("cpu", card):
+        rk.reset_launches()
+        runs.append(run_consensus(pack_edges(edges, n, device=dev),
+                                  get_detector(alg), cfg))
+    assert rk.LAUNCHES["row_totals"] > 0
+    cpu, gpu = runs
+    np.testing.assert_array_equal(np.stack(gpu.partitions),
+                                  np.stack(cpu.partitions))
+    assert [h["n_unconverged"] for h in gpu.history] == \
+        [h["n_unconverged"] for h in cpu.history]
+
+
 @pytest.mark.parametrize("path", ["hybrid", "dense"])
 def test_consensus_on_card_equals_cpu(card, monkeypatch, path):
     from fastconsensus_tpu_torch.consensus import (ConsensusConfig,

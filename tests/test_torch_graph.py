@@ -79,3 +79,111 @@ def test_sizing_rules_identical(seed):
     assert tgraph.derive_hybrid_sizing(deg, n, e) == \
         jgraph.derive_hybrid_sizing(deg, n, e)
     assert tgraph.derive_agg_sizing(e) == jgraph.derive_agg_sizing(e)
+
+
+@pytest.mark.parametrize("agg_cap", ["below", "above"])
+def test_compact_alive_identical(agg_cap):
+    """compact_alive, per member, against the reference's on each
+    member's slab: slots, weights and alive count (a cap below the alive
+    count drops the tail)."""
+    planted, _ = planted_partition(300, 4, 0.2, 0.02, seed=3)
+    j = jgraph.pack_edges(planted, 300)
+    rng = np.random.default_rng(1)
+    alive = np.stack([np.asarray(j.alive) & (rng.random(j.capacity) < p)
+                      for p in (0.5, 0.9, 1.0)])
+    w = rng.integers(1, 9, j.capacity).astype(np.float32)
+    t = tgraph.pack_edges(planted, 300, device="cpu").with_weights(
+        torch.as_tensor(w), torch.as_tensor(alive))
+    n_alive = alive.sum(axis=1)
+    cap = int(n_alive.min()) - 7 if agg_cap == "below" else \
+        int(n_alive.max()) + 64
+    got = tgraph.compact_alive(t, cap)
+    assert got.batch == (3,) and got.capacity == cap
+    for i in range(3):
+        ji = jgraph.compact_alive(
+            j.with_weights(jnp.asarray(w), jnp.asarray(alive[i])), cap)
+        for name in ("src", "dst", "weight", "alive"):
+            np.testing.assert_array_equal(getattr(got, name)[i].numpy(),
+                                          np.asarray(getattr(ji, name)))
+        for name in STATICS:
+            assert getattr(got, name) == getattr(ji, name), name
+        np.testing.assert_array_equal(got.degrees()[i].numpy(),
+                                      np.asarray(ji.degrees()))
+        np.testing.assert_array_equal(got.strengths()[i].numpy(),
+                                      np.asarray(ji.strengths()))
+
+
+def test_batched_slab_reductions_keep_self_loop_convention():
+    """Member-batched slabs (aggregate graphs carry self-loops): degrees
+    and strengths count a self-loop twice, 2m is per member, as the
+    reference's reductions on each member's slab."""
+    rng = np.random.default_rng(2)
+    cap, n = 64, 12
+    src = rng.integers(0, n, (2, cap))
+    dst = np.where(rng.random((2, cap)) < 0.2, src,
+                   rng.integers(0, n, (2, cap)))
+    w = rng.integers(1, 30, (2, cap)).astype(np.float32)
+    alive = rng.random((2, cap)) < 0.8
+    t = tgraph.GraphSlab(src=torch.as_tensor(src), dst=torch.as_tensor(dst),
+                         weight=torch.as_tensor(w),
+                         alive=torch.as_tensor(alive), n_nodes=n)
+    for i in range(2):
+        j = jgraph.GraphSlab(src=jnp.asarray(src[i], jnp.int32),
+                             dst=jnp.asarray(dst[i], jnp.int32),
+                             weight=jnp.asarray(w[i]),
+                             alive=jnp.asarray(alive[i]), n_nodes=n)
+        np.testing.assert_array_equal(t.degrees()[i].numpy(),
+                                      np.asarray(j.degrees()))
+        np.testing.assert_array_equal(t.strengths()[i].numpy(),
+                                      np.asarray(j.strengths()))
+        for a, b in zip(t.directed(), j.directed()):
+            np.testing.assert_array_equal(a[i].numpy(), np.asarray(b))
+        _, _, wd, ad = j.directed()
+        assert float(t.total_weight()[i]) == float(
+            jnp.sum(jnp.where(ad, wd, 0.0)))
+    assert t.take(torch.tensor([1])).batch == (1,)
+
+
+def test_lfr10k_file():
+    """The committed lfr10k graph (``synth.lfr_graph(10000, 0.5,
+    seed=42)``): 10,000 nodes, 58,712 unique edges, no self-loops."""
+    from pathlib import Path
+
+    z = np.load(Path(__file__).resolve().parent.parent / "bench_data" /
+                "lfr10k.npz")
+    edges, labels = z["edges"], z["labels"]
+    assert labels.shape == (10_000,) and edges.shape == (58_712, 2)
+    assert edges.min() >= 0 and edges.max() < 10_000
+    assert (edges[:, 0] != edges[:, 1]).all()
+    canon = np.sort(edges, axis=1)
+    assert np.unique(canon, axis=0).shape[0] == 58_712
+    assert len(np.unique(labels)) == 106
+
+
+@pytest.mark.parametrize("sized", [False, True])
+def test_planted_partition_copy_identical(sized):
+    """The port's copy of the generator draws the reference's graph; the
+    sized case is bench.py's email-Eu-core stand-in (n 1,005, 42 blocks,
+    size_alpha 0.85, seed 42: 24,288 edges)."""
+    from fastconsensus_tpu_torch.utils import synth as tsynth
+
+    if sized:
+        sizes = tsynth.heterogeneous_sizes(1005, 42, 0.85)
+        w = np.arange(1, 43, dtype=float) ** -0.85   # bench.py:make_graph
+        ref = np.maximum((w / w.sum() * 1005).astype(np.int64), 2)
+        while ref.sum() > 1005:
+            ref[np.argmax(ref)] -= 1
+        while ref.sum() < 1005:
+            ref[np.argmin(ref)] += 1
+        np.testing.assert_array_equal(sizes, ref)
+        args = (1005, 42, 0.6, 0.02)
+        kw = dict(seed=42, sizes=sizes)
+    else:
+        args, kw = (500, 5, 0.2, 0.01), dict(seed=1)
+    got = tsynth.planted_partition(*args, **kw)
+    want = planted_partition(*args, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    if sized:
+        assert got[0].shape == (24_288, 2)
+        assert tgraph.pack_edges(got[0], 1005, device="cpu").d_cap == 176

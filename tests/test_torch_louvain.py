@@ -179,7 +179,7 @@ def test_select_move_path_forced_fallbacks(monkeypatch):
     nocap = dataclasses.replace(slab, d_cap=0)
     monkeypatch.setenv("FCTPU_MOVE_PATH", "dense")
     assert tlv.select_move_path(nocap) == "runs"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlv.Prepared(nocap)
+    # the forced fallback now runs the sorted-run oracle
+    assert tlv.Prepared(nocap).path == "runs"
     monkeypatch.setenv("FCTPU_MOVE_PATH", "hash")
     assert tlv.select_move_path(nocap) == "hash"

@@ -130,6 +130,62 @@ def test_compact_labels():
         eq(got[i], jseg.compact_labels(jnp.asarray(labels[i]), 50))
 
 
+@pytest.mark.parametrize("case", ["random", "padded", "masked", "batched"])
+def test_node_label_runs(case):
+    """The sorted-run reduction, run for run: nodes, labels, totals and
+    validity exactly as the reference's lexsort gives them."""
+    rng = np.random.default_rng(6)
+    e, n = 400, 30
+    node = rng.integers(0, n, e).astype(np.int32)
+    label = rng.integers(0, 12, e).astype(np.int32)
+    value = rng.integers(0, 6, e).astype(np.float32)
+    valid = np.ones(e, bool)
+    if case == "padded":               # a dead tail, as a slab's slots
+        valid[e // 2:] = False
+        node[e // 2:] = 0
+    if case == "masked":
+        valid = rng.random(e) < 0.6
+        node[~valid] = rng.integers(0, 10 * n, int((~valid).sum()))
+    ref = jax.jit(jseg.node_label_runs, static_argnums=4)
+    if case != "batched":
+        got = tseg.node_label_runs(T(node), T(label), T(value), T(valid), n)
+        for a, b in zip(got, ref(node, label, value, valid, n)):
+            eq(a, b)
+        return
+    labels = np.stack([label, label[::-1], label % 3])
+    valids = rng.random((3, e)) < 0.7
+    got = tseg.node_label_runs(T(node), T(labels), T(value), T(valids), n)
+    for i in range(3):
+        for a, b in zip(got, ref(node, labels[i], value, valids[i], n)):
+            eq(a[i], b)
+
+
+def test_gumbel_from_uniform_within_band():
+    """Float64 logs rounded to float32 at each step: within 2e-6 of the
+    reference's float32 logs (XLA:CPU's log is not correctly rounded)."""
+    rng = np.random.default_rng(7)
+    u = (rng.integers(0, 1 << 24, 200_000) / float(1 << 24)).astype(
+        np.float32)
+    u[:4] = [0.0, 1e-8, 1.0 - 2.0 ** -24, 0.5]
+    got = tseg.gumbel_from_uniform(T(u)).numpy()
+    want = np.asarray(jax.jit(jseg.gumbel_from_uniform)(jnp.asarray(u)))
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    print(f"gumbel: max abs diff {diff.max():.3g}, "
+          f"{int((diff > 0).sum())} of {u.size} differ")
+    assert np.isfinite(got).all() and diff.max() <= 2e-6
+    # the clamp's bounds round to the reference's float32 bounds
+    eq(tseg.gumbel_from_uniform(T(u[:3])), np.asarray(
+        jseg.gumbel_from_uniform(jnp.asarray(u[:3]))))
+
+
+def test_uniform_jitter():
+    keys = [jax.random.key(s) for s in range(3)]
+    got = tseg.uniform_jitter(torch.stack([port_key(k) for k in keys]),
+                              (5, 7), 0.5)
+    for i, k in enumerate(keys):
+        eq(got[i], jseg.uniform_jitter(k, (5, 7), 0.5))
+
+
 # --- dense rows ----------------------------------------------------------------
 
 def test_dense_and_hybrid_adjacency(planted):
@@ -144,6 +200,56 @@ def test_dense_and_hybrid_adjacency(planted):
         eq(a, b)
     for f in ("is_hub", "hsrc", "hdst", "hw", "hvalid", "n_hub_overflow"):
         eq(getattr(th, f), getattr(jh, f))
+
+
+def test_masked_hybrid_takes_hubs_from_masked_degrees(planted):
+    """Per-member masked slabs (Leiden's refinement): each member's rows,
+    hub split and hub prefix equal the reference's build on that member's
+    masked slab, and a hub of the full slab can be a row node there."""
+    import dataclasses
+
+    js, ts, truth = planted
+    n = js.n_nodes
+    src, dst = np.asarray(js.src), np.asarray(js.dst)
+    hub = int(np.argmax(np.asarray(js.degrees())))
+    assert bool(np.asarray(jda.build_hybrid(js).is_hub)[hub])
+    comm = np.stack([truth, np.where(np.arange(n) == hub, 999, truth)])
+    alive = np.asarray(js.alive) & (comm[:, src] == comm[:, dst])
+    tm = dataclasses.replace(ts, alive=T(alive))
+    th, td = tda.build_hybrid(tm), tda.build_dense_adjacency(tm)
+    assert not bool(th.is_hub[1, hub])
+    for i in range(2):
+        jm = js.with_weights(js.weight, jnp.asarray(alive[i]))
+        jh = jax.jit(jda.build_hybrid)(jm)
+        for a, b in zip(th.adj, jh.adj):
+            eq(a[i], b)
+        for f in ("is_hub", "hsrc", "hdst", "hw", "hvalid", "n_hub_overflow"):
+            eq(getattr(th, f)[i], getattr(jh, f))
+        for a, b in zip(td, jax.jit(jda.build_dense_adjacency)(jm)):
+            eq(a[i], b)
+
+
+def test_row_label_rank_is_sorted_position(planted):
+    """``rank``: each slot's position in its row sorted by label (the
+    reference's CPU slot order), so head i of the port sits where the
+    reference's sorted row holds the same label."""
+    js, ts, truth = planted
+    rng = np.random.default_rng(8)
+    labels = np.where(rng.random((2, 400)) < 0.5, truth * 3,
+                      rng.integers(0, 400, (2, 400))).astype(np.int32)
+    tot, rank = tda.row_label_totals(tda.build_dense_adjacency(ts),
+                                     T(labels), rank=True)
+    ref = jax.jit(lambda a, lab: jda.row_label_totals(a, lab,
+                                                      use_pallas=False))
+    adj_j = jda.build_dense_adjacency(js)
+    for m in range(2):
+        tj = ref(adj_j, jnp.asarray(labels[m]))
+        head = tot.is_head[m].numpy()
+        r, c = np.nonzero(head)
+        pos = rank[m].numpy()[r, c]
+        assert np.asarray(tj.is_head)[r, pos].all()
+        eq(T(np.asarray(tj.label)[r, pos]), tot.label[m].numpy()[r, c])
+        eq(T(np.asarray(tj.total)[r, pos]), tot.total[m].numpy()[r, c])
 
 
 def candidate_set(label, total, head):
