@@ -5,6 +5,8 @@
 Phases (any failure exits non-zero without the final line):
 
 1. build     compile both CUDA kernels (one nvcc per source, in parallel)
+             and the host C++; time the native and the Python edgelist
+             readers on lfr100k written as text
 2. kernels   each kernel against its plain PyTorch version on the card,
              bit for bit, and timed (CUDA events, median of 25 runs);
              row_totals at the lfr100k shape, the run's later widths 9
@@ -15,14 +17,18 @@ Phases (any failure exits non-zero without the final line):
              (matmul sweep path), leiden and lpm: 20 valid partitions each
 4. gpu_cpu   one planted 5k-node graph through the hybrid path on the card
              and on the CPU with louvain and leiden, and through the
-             sorted-run vote (d_cap 0) with lpm: equal integer round
-             histories, per-member agreement NMI >= 0.99
+             sorted-run vote (d_cap 0) with lpm; louvain with the scatter
+             wedge sampler; cnm and infomap (n_p=8, at most 2 rounds,
+             delta 0) on the emailEu stand-in: identical partitions and
+             integer round histories
 5. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
 6. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
              delta=0.02, max_rounds=8, closure_tau=0.2; afterwards
              row_totals at every shape the run launched it at, checked
-             as in phase 2 and timed
+             as in phase 2 and timed, and the device memory of one group
+             of the scatter wedge sampler at its element cap, on the
+             slab at the run's largest capacity
 7. leiden_lfr10k  bench.py's lfr10k configuration on
              bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
              max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
@@ -32,11 +38,26 @@ Phases (any failure exits non-zero without the final line):
              tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
              kernel's sorted regime; row_totals per shape as in 6, and the
              vote's sorted-rank step timed at the run's shape
+9. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
+             the card) on the emailEu stand-in: n_p=50, tau=0.7,
+             delta=0.02, seed 0; rounds, wall, host C++ seconds and tail
+             seconds per round, peak memory, member NMI to the planted
+             labels
+10. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
+             n_p=50, tau=0.6, delta=0.02, max_rounds=8; both cells are
+             run once more on the CPU and must give identical partitions,
+             round histories and output trees
+11. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
+             hybrid rows on gpu_cpu's planted 5k graph; 4 rounds
+             uninterrupted against 2 rounds resumed to 4, and against a
+             card resume of a checkpoint the CPU wrote: equal partitions,
+             histories and output trees
 
-Kernel launch counters are reset just before phases 5-8 and read just
-after: phases 6-8 must launch ``row_totals``, phase 5 ``fused_move_rows``.
-The second-to-last lines are the kernels' JSON record and the card's name
-and power limit; the last line is the device record.
+Kernel launch counters are reset just before phases 5-8 and 11 and read
+just after: phases 6-8 and 11 must launch ``row_totals``,
+phase 5 ``fused_move_rows``.  The second-to-last lines are the kernels'
+JSON record and the card's name and power limit; the last line is the
+device record.
 """
 
 from __future__ import annotations
@@ -213,7 +234,11 @@ def check_and_time_shapes(shapes, seed: int):
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
+    import numpy as np
+
+    from fastconsensus_tpu_torch import native
     from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.utils import io
 
     t0 = time.perf_counter()
     info = rk.build()
@@ -224,6 +249,25 @@ def phase_build(state):
         log(f"build {name}: {rec['seconds']:.2f}s cached={rec['cached']} "
             f"{ptx}")
     log(f"build: {state['build_s']:.2f}s for {len(info)} kernels")
+    # the host C++ (CNM, Infomap, the edgelist parser), and the two
+    # edgelist readers on the largest graph the phases read, as text
+    t0 = time.perf_counter()
+    native.load()
+    cxx_s = time.perf_counter() - t0
+    path = _write_edgelist(np.load(ROOT / "bench_data" / "lfr100k.npz")
+                           ["edges"], OUT / "lfr100k.txt")
+    t0 = time.perf_counter()
+    fast = io.read_edgelist(str(path))
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = io.read_edgelist_python(str(path))
+    slow_s = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(fast, slow)
+              if b is not None), "edgelist readers disagree")
+    log(f"build: host C++ {cxx_s:.2f}s ({native.lib_path().name}); "
+        f"lfr100k as text ({path.stat().st_size} bytes, "
+        f"{fast[0].shape[0]} edges): native reader {fast_s:.4f}s, Python "
+        f"reader {slow_s:.4f}s, equal; host cores {os.cpu_count()}")
 
 
 def phase_kernels(state):
@@ -406,31 +450,50 @@ def phase_gpu_cpu(state):
 
     edges, truth = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
                                  hub_degree=600)
+    email, email_truth = cell_inputs("cnm_emaileu", state)[:2]
     ints = ("n_alive", "n_unconverged", "n_closure_added", "n_repaired",
             "n_hub_overflow", "n_agg_overflow", "capacity", "labels_changed")
-    # (algorithm, how it runs, run settings): louvain and leiden on the
-    # forced hybrid path, lpm packed without rows (the sorted-run vote)
-    for alg, how, cfg in (
-            ("louvain", "hybrid", dict(n_p=4, tau=0.2, max_rounds=3)),
-            ("leiden", "hybrid", dict(n_p=4, tau=0.2, max_rounds=2)),
-            ("lpm", "runs", dict(n_p=4, tau=0.8, max_rounds=2))):
-        cfg = dict(cfg, delta=0.02, seed=11)
-        if how == "hybrid":
+    # (algorithm, graph, how it runs, run settings): louvain and leiden on
+    # the forced hybrid path, lpm packed without rows (the sorted-run
+    # vote), louvain with the scatter wedge sampler, and the host C++
+    # detectors (the tail on each device)
+    planted5k = ("5k planted", edges, truth)
+    emaileu = ("emailEu stand-in", email, email_truth)
+    for alg, (gname, g_edges, g_truth), how, cfg in (
+            ("louvain", planted5k, "hybrid",
+             dict(n_p=4, tau=0.2, max_rounds=3)),
+            ("leiden", planted5k, "hybrid",
+             dict(n_p=4, tau=0.2, max_rounds=2)),
+            ("lpm", planted5k, "runs", dict(n_p=4, tau=0.8, max_rounds=2)),
+            ("louvain", planted5k, "hybrid, scatter sampler",
+             dict(n_p=4, tau=0.2, max_rounds=3, closure_sampler="scatter")),
+            # delta 0, so that a round with unconverged edges closes
+            # triangles (Infomap's first); CNM's members agree at once
+            ("cnm", emaileu, "host",
+             dict(n_p=8, tau=0.7, max_rounds=2, delta=0.0)),
+            ("infomap", emaileu, "host",
+             dict(n_p=8, tau=0.6, max_rounds=2, delta=0.0))):
+        cfg = dict(dict(delta=0.02, seed=11), **cfg)
+        n = int(g_truth.shape[0])
+        if how.startswith("hybrid"):
             os.environ["FCTPU_MOVE_PATH"] = "hybrid"
         try:
-            g, g_s, _ = _run(edges, 5000, DEVICE, alg, how == "runs", **cfg)
-            c, c_s, _ = _run(edges, 5000, "cpu", alg, how == "runs", **cfg)
+            g, g_s, _ = _run(g_edges, n, DEVICE, alg, how == "runs", **cfg)
+            c, c_s, _ = _run(g_edges, n, "cpu", alg, how == "runs", **cfg)
         finally:
             os.environ.pop("FCTPU_MOVE_PATH", None)
         agree = [nmi(a, b) for a, b in zip(g.partitions, c.partitions)]
         same = [bool(np.array_equal(a, b)) for a, b in
                 zip(g.partitions, c.partitions)]
-        log(f"gpu vs cpu ({alg}, 5k planted, {how}, n_p=4, {g.rounds} "
-            f"rounds): per-member NMI {[round(a, 6) for a in agree]}, "
-            f"identical {same}; {DEVICE} {g_s:.2f}s, cpu {c_s:.2f}s; NMI to "
-            f"truth {np.mean([nmi(p, truth) for p in g.partitions]):.4f}")
+        log(f"gpu vs cpu ({alg}, {gname}, {how}, n_p={cfg['n_p']}, "
+            f"delta={cfg['delta']}, {g.rounds} rounds, closure "
+            f"{[h['n_closure_added'] for h in g.history]}): per-member NMI "
+            f"{[round(a, 6) for a in agree]}, identical {same}; {DEVICE} "
+            f"{g_s:.2f}s, cpu {c_s:.2f}s; NMI to truth "
+            f"{np.mean([nmi(p, g_truth) for p in g.partitions]):.4f}")
         check(min(agree) >= 0.99,
               f"{alg} gpu/cpu agreement {min(agree)} < 0.99")
+        check(all(same), f"{alg} ({how}) gpu/cpu partitions differ")
         check([[h[k] for k in ints] for h in g.history] ==
               [[h[k] for k in ints] for h in c.history],
               f"{alg} gpu/cpu round histories differ")
@@ -465,14 +528,22 @@ def cell_inputs(name: str, state):
 
     from fastconsensus_tpu_torch.utils import synth
 
-    if name == "lpm_emaileu":
+    if name in ("lpm_emaileu", "cnm_emaileu"):
         sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
         edges, truth = synth.planted_partition(1005, 42, 0.6, 0.02, seed=42,
                                                sizes=sizes)
+        if name == "cnm_emaileu":
+            return edges, truth, "cnm", dict(
+                n_p=state.get("cnm_n_p", 50), tau=0.7, delta=0.02, seed=0,
+                max_rounds=64)
         return edges, truth, "lpm", dict(n_p=state.get("lpm_n_p", 50),
                                          tau=0.8, delta=0.02, seed=0)
     data = np.load(ROOT / "bench_data" / f"{name.split('_')[-1]}.npz")
     edges, truth = data["edges"], data["labels"]
+    if name == "infomap_lfr10k":
+        return edges, truth, "infomap", dict(
+            n_p=state.get("infomap_n_p", 50), tau=0.6, delta=0.02, seed=0,
+            max_rounds=8)
     if name == "leiden_lfr10k":
         return edges, truth, "leiden", dict(
             n_p=state.get("leiden_n_p", 100), tau=0.2, delta=0.02,
@@ -529,6 +600,41 @@ def phase_lfr100k(state):
                             wall_s=wall, per_round_s=per_round,
                             nmi_mean=float(np.mean(scores)),
                             max_memory_allocated=peak)
+    if DEVICE == "cuda":
+        _scatter_group_peak(edges, n, max(h["capacity"] for h in res.history))
+
+
+def _scatter_group_peak(edges, n, capacity):
+    """Device memory of one group of the scatter wedge sampler at its
+    element cap, on lfr100k packed at the run's largest capacity: the
+    peak allocated over the resident slab, and the group's time."""
+    import torch
+
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.ops import consensus_ops as cops
+    from fastconsensus_tpu_torch.utils import prng
+
+    slab = pack_edges(edges, n, capacity=capacity, device=DEVICE)
+    srcd, dstd, _, ad = slab.directed()
+    valid_e = ad & (srcd != dstd)
+    group = max(1, cops.SCATTER_GROUP_ELEMS // max(2 * capacity, n + 1))
+    key = prng.key(3, device=DEVICE)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = cops.partner_draw_batches(key, srcd, dstd, valid_e, n, capacity,
+                                    group * n)
+    sync()
+    secs = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - base
+    elems = group * 2 * capacity
+    check(out[0].shape == (group * n,), "scatter sampler output shape")
+    log(f"scatter sampler at the group cap: lfr100k, capacity {capacity}, "
+        f"{group} draws a group = {elems} priority elements "
+        f"(cap {cops.SCATTER_GROUP_ELEMS}); peak {extra} bytes over the "
+        f"resident slab ({extra / elems:.2f} bytes an element), "
+        f"{secs:.4f}s")
 
 
 def _main_path_run(state, name):
@@ -610,6 +716,214 @@ def phase_lpm_emaileu(state):
     state["rank_ms"] = dict(rows=r, d=d, ms=ms, row_totals_ms=kernel_ms)
 
 
+def _write_edgelist(edges, path: Path) -> Path:
+    import numpy as np
+
+    np.savetxt(path, np.asarray(edges, dtype=np.int64), fmt="%d")
+    return path
+
+
+def _cli_run(args, alg):
+    """The port's CLI on ``args``, as a user runs it, with the consensus
+    result it computed captured and two layers timed: the host C++ call of
+    each detection (cnm, infomap) and each consensus tail, both
+    synchronized.  Returns ``(result, wall s, host s per call, tail s per
+    call)``."""
+    from fastconsensus_tpu_torch import cli, consensus, engine, native
+
+    host_s, tail_s, results = [], [], []
+
+    def timed(calls, fn):
+        def wrapper(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            calls.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def capture(fn):
+        def wrapper(*a, **k):
+            results.append(fn(*a, **k))
+            return results[-1]
+        return wrapper
+
+    host_fn = {"cnm": "cnm_labels", "infomap": "infomap_labels"}.get(alg)
+    saved = [(consensus, "run_consensus"), (engine, "consensus_tail")]
+    saved += [(native, host_fn)] if host_fn else []
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    consensus.run_consensus = capture(saved[0][2])
+    engine.consensus_tail = timed(tail_s, saved[1][2])
+    if host_fn:
+        setattr(native, host_fn, timed(host_s, saved[2][2]))
+    sync()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([str(a) for a in args])
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    sync()
+    wall = time.perf_counter() - t0
+    check(rc == 0 and len(results) == 1, f"CLI {args}: exit {rc}")
+    return results[0], wall, host_s, tail_s
+
+
+def _check_same_run(what, a, a_out, b, b_out):
+    """Two CLI runs gave equal partitions, integer round histories and
+    output trees."""
+    import filecmp
+
+    import numpy as np
+
+    ints = ("round", "n_alive", "n_unconverged", "n_closure_added",
+            "n_repaired", "n_dropped", "n_hub_overflow", "cold", "capacity",
+            "labels_changed")
+    check(a.rounds == b.rounds and np.array_equal(
+        np.stack(a.partitions), np.stack(b.partitions)),
+        f"{what}: partitions differ")
+    check([[h[k] for k in ints] for h in a.history] ==
+          [[h[k] for k in ints] for h in b.history],
+          f"{what}: round histories differ")
+    for tree in sorted(p.name for p in a_out.iterdir()):
+        files = sorted(q.name for q in (a_out / tree).iterdir())
+        _, bad, err = filecmp.cmpfiles(a_out / tree, b_out / tree, files,
+                                       shallow=False)
+        check(not bad and not err, f"{what}: {tree} differs")
+
+
+def _host_detector_cell(state, name):
+    """One CLI run of a host C++ detector's cell on the card, and the
+    same run on the CPU, which must agree with it exactly."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.utils.metrics import nmi
+
+    edges, truth, alg, cfg = cell_inputs(name, state)
+    out, cpu_out = OUT / name, OUT / f"{name}_cpu"
+    for d in (out, cpu_out):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    path = _write_edgelist(edges, OUT / f"{name}.txt")
+    ids = np.unique(edges)
+    log(f"{name}: graph N={truth.shape[0]} ({ids.size} in the edgelist) "
+        f"E={edges.shape[0]}; CLI --alg {alg} -np {cfg['n_p']} -t "
+        f"{cfg['tau']} -d {cfg['delta']} --seed {cfg['seed']} --max-rounds "
+        f"{cfg['max_rounds']} on {DEVICE}; host cores {os.cpu_count()}")
+    args = ["-f", path, "--alg", alg, "-np", cfg["n_p"], "-t", cfg["tau"],
+            "-d", cfg["delta"], "--seed", cfg["seed"], "--max-rounds",
+            cfg["max_rounds"], "--quiet"]
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, wall, host_s, tail_s = _cli_run(
+        args + ["--out-dir", out, "--device", DEVICE], alg)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    cpu_res, cpu_wall, _, _ = _cli_run(
+        args + ["--out-dir", cpu_out, "--device", "cpu"], alg)
+    _check_same_run(f"{name}: {DEVICE} against the CPU", res, out, cpu_res,
+                    cpu_out)
+    log(f"{name}: the same run on the CPU ({cpu_wall:.2f}s): identical "
+        f"partitions, round histories and output trees")
+    _valid_partition_tree(out, cfg["n_p"], ids.size, [int(x) for x in ids])
+    # a round that saturates the slab is replayed: detection and tail again
+    replays = len(tail_s) - res.rounds
+    check(len(host_s) == len(tail_s) + 1 and replays >= 0,
+          f"{name}: {len(host_s)} host calls, {len(tail_s)} tails for "
+          f"{res.rounds} rounds")
+    check(len(res.partitions) == cfg["n_p"] and all(
+        p.shape == (ids.size,) and p.min() >= 0 for p in res.partitions),
+        f"{name}: partition shapes")
+    scores = [nmi(p, truth[ids]) for p in res.partitions]
+    for i, h in enumerate(res.history):
+        times = (f", host C++ {host_s[i]:.3f}s, tail on {DEVICE} "
+                 f"{tail_s[i]:.4f}s" if replays == 0 else "")
+        log(f"  round {h['round']}: {h['n_alive']} alive, "
+            f"{h['n_unconverged']} unconverged, +{h['n_closure_added']} "
+            f"closure, capacity {h['capacity']}{times}")
+    log(f"{name}: {alg} rounds={res.rounds} replays={replays} "
+        f"converged={res.converged} "
+        f"wall={wall:.2f}s host_cxx_s_per_round="
+        f"{[round(x, 3) for x in host_s[:-1]]} final_host_cxx_s="
+        f"{host_s[-1]:.3f} host_cxx_s_total={sum(host_s):.3f} "
+        f"tail_s_per_round={[round(x, 4) for x in tail_s]} "
+        f"tail_s_total={sum(tail_s):.4f} max_memory_allocated={peak} "
+        f"nmi_mean={np.mean(scores):.4f} nmi_min={min(scores):.4f}")
+    check(all(math.isfinite(x) for x in scores), f"{name}: NMI not finite")
+    state.setdefault("host_cells", {})[name] = dict(
+        rounds=res.rounds, converged=res.converged, wall_s=wall,
+        host_s=host_s, tail_s=tail_s, max_memory_allocated=peak,
+        nmi_mean=float(np.mean(scores)))
+
+
+def phase_cnm_emaileu(state):
+    _host_detector_cell(state, "cnm_emaileu")
+
+
+def phase_infomap_lfr10k(state):
+    _host_detector_cell(state, "infomap_lfr10k")
+
+
+def phase_resume(state):
+    """``--checkpoint`` / ``--resume`` through the CLI on the card: an
+    uninterrupted 4-round run against 2 rounds resumed to 4, and against
+    a card resume of the CPU's 2-round checkpoint."""
+    import shutil
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    edges, _ = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
+                             hub_degree=600)
+    base = OUT / "resume"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    path = _write_edgelist(edges, base / "planted5k.txt")
+    log(f"resume: 5k planted (E={edges.shape[0]}), louvain, n_p 8, seed 11, "
+        f"forced hybrid rows, checkpoint every round")
+
+    def cli(tag, rounds, ck, device=DEVICE, resume=False):
+        out = base / tag
+        out.mkdir()
+        args = ["-f", path, "--alg", "louvain", "-np", 8, "--seed", 11,
+                "--max-rounds", rounds, "--checkpoint", base / ck,
+                "--out-dir", out, "--quiet", "--device", device]
+        res, wall, _, _ = _cli_run(args + (["--resume"] if resume else []),
+                                   "louvain")
+        log(f"resume: {tag} on {device}: {res.rounds} rounds, "
+            f"{wall:.2f}s")
+        return res, out
+
+    os.environ["FCTPU_MOVE_PATH"] = "hybrid"
+    try:
+        rk.reset_launches()
+        full, full_out = cli("full", 4, "full.npz")
+        cli("first_half", 2, "half.npz")
+        resumed, resumed_out = cli("resumed", 4, "half.npz", resume=True)
+        launches = dict(rk.LAUNCHES)
+        shapes = dict(rk.ROW_TOTALS_SHAPES)
+        cli("cpu_half", 2, "cpu.npz", device="cpu")
+        rk.reset_launches()
+        from_cpu, from_cpu_out = cli("from_cpu", 4, "cpu.npz", resume=True)
+        launches_cpu = dict(rk.LAUNCHES)
+    finally:
+        os.environ.pop("FCTPU_MOVE_PATH", None)
+    for tag, res, out in (("resumed", resumed, resumed_out),
+                          ("from_cpu", from_cpu, from_cpu_out)):
+        _check_same_run(f"resume: {tag} against the uninterrupted run",
+                        full, full_out, res, out)
+    log(f"resume: uninterrupted {full.rounds} rounds == 2 + resumed == CPU "
+        f"2 + card resumed: partitions, histories and output trees equal; "
+        f"launches {launches} (from the CPU checkpoint {launches_cpu})")
+    check(launches["row_totals"] > 0 and launches_cpu["row_totals"] > 0,
+          "resume never launched row_totals")
+    per_shape = check_and_time_shapes(shapes, seed=4)
+    state.setdefault("main_paths", {})["resume"] = dict(
+        launches=launches["row_totals"], by_shape=per_shape)
+
+
 def phase_profile(state):
     """Not a default phase: one cell's consensus run (``--profile-cell``,
     default lfr100k; ``--n-p``, ``--max-rounds`` or ``--leiden-rounds``)
@@ -618,14 +932,16 @@ def phase_profile(state):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from fastconsensus_tpu_torch import engine
+    from fastconsensus_tpu_torch import engine, native
     from fastconsensus_tpu_torch.models import leiden, louvain, lpm
 
     cell = state.get("profile_cell", "lfr100k")
     edges, truth, alg, cfg = cell_inputs(cell, state)
     det_mod, det_fn = {"louvain": (louvain, "louvain_members"),
                        "leiden": (leiden, "leiden_members"),
-                       "lpm": (lpm, "lpm_members")}[alg]
+                       "lpm": (lpm, "lpm_members"),
+                       "cnm": (native, "cnm_labels"),
+                       "infomap": (native, "infomap_labels")}[alg]
     calls = {"detect": [], "tail": []}
 
     def timed(layer, fn):
@@ -727,7 +1043,9 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "karate": phase_karate, "gpu_cpu": phase_gpu_cpu,
           "fused": phase_fused, "lfr100k": phase_lfr100k,
           "leiden_lfr10k": phase_leiden_lfr10k,
-          "lpm_emaileu": phase_lpm_emaileu}
+          "lpm_emaileu": phase_lpm_emaileu,
+          "cnm_emaileu": phase_cnm_emaileu,
+          "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume}
 EXTRA_PHASES = {"profile": phase_profile}
 
 
@@ -742,7 +1060,8 @@ def main(argv=None) -> int:
                    help="leiden_lfr10k's max_rounds (default 16, "
                         "bench.py's)")
     p.add_argument("--profile-cell", default="lfr100k",
-                   choices=("lfr100k", "leiden_lfr10k", "lpm_emaileu"),
+                   choices=("lfr100k", "leiden_lfr10k", "lpm_emaileu",
+                            "cnm_emaileu", "infomap_lfr10k"),
                    help="the cell phase profile runs")
     args = p.parse_args(argv)
     try:

@@ -4,20 +4,22 @@ Counterpart of the solo ``run_consensus`` of ``fastconsensus_tpu/
 consensus.py``, with everything that changes results kept: warm-started
 detection (capped-sweep warm variant), endgame key alignment, stagnation
 refresh (policy.stale / policy.stalled), re-derivation of the dense/hybrid
-budgets when they starve (policy.budgets_stale), and auto-growth of the
-slab with a deterministic replay of the saturating round.  Rounds run one
-at a time; the reference's fused round blocks are documented
-bit-identical to that.
+budgets when they starve (policy.budgets_stale), auto-growth of the slab
+with a deterministic replay of the saturating round, both wedge samplers,
+and checkpoint/resume in the reference's file format
+(``utils/checkpoint.py``).  Rounds run one at a time; the reference's
+fused round blocks are documented bit-identical to that.
 
-Not ported in this slice: the device mesh, checkpoint/resume, the detect
-cache, fcdelta's ``init_labels``/``active_mask``, the batched multi-graph
-driver, the scatter wedge sampler.
+Not ported yet: the device mesh, the detect cache, fcdelta's
+``init_labels``/``active_mask``, the batched multi-graph driver.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import warnings
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -67,10 +69,6 @@ def _validate_config(config: ConsensusConfig) -> None:
         raise ValueError(
             f"closure_sampler={config.closure_sampler!r}: expected "
             f"'auto', 'csr' or 'scatter'")
-    if config.closure_sampler == "scatter":
-        raise NotImplementedError(
-            "closure_sampler='scatter' (the mesh path's sort-free wedge "
-            "sampler) is not yet ported; use 'auto' or 'csr'")
     if config.closure_tau is not None and \
             not 0.0 <= config.closure_tau <= 1.0:
         raise ValueError(f"closure_tau={config.closure_tau} out of range; "
@@ -112,12 +110,93 @@ def _history_entry(stats: RoundStats, rounds: int, capacity: int,
     }
 
 
+def _resume_from_checkpoint(path: str, slab: GraphSlab,
+                            config: ConsensusConfig, warm: bool,
+                            sampler: str):
+    """Load and check a checkpoint for :func:`run_consensus`, as the
+    reference does: ``(slab, start_round, key, history, labels or None,
+    converged, sampler)``.  Rejects a checkpoint written by another run
+    configuration (the weights are co-membership counts out of the saved
+    n_p), migrates the reference's older formats and grows the slab when
+    the caller packed it larger."""
+    from fastconsensus_tpu_torch.utils import checkpoint as ckpt
+
+    in_nodes, in_cap = slab.n_nodes, slab.capacity
+    in_hyb, in_hub = slab.d_hyb, slab.hub_cap
+    slab, start_round, key_data, history, extra = ckpt.load_checkpoint(
+        path, device=slab.device)
+    if extra.pop("_legacy_v1", False) and (in_hyb or in_hub):
+        # v1 files lack the hybrid sizing; it is a function of the input's
+        # degrees, so the fresh pack carries the run's own values
+        _logger.info("migrating v1 checkpoint: hybrid sizing d_hyb=%d "
+                     "hub_cap=%d from the input pack", in_hyb, in_hub)
+        slab = dataclasses.replace(slab, d_hyb=in_hyb, hub_cap=in_hub)
+    if extra.get("closure_sampler") is None:
+        # written before the sampler knob: every such run drew with the
+        # scatter sampler, and "auto" keeps drawing with it
+        extra["closure_sampler"] = "scatter"
+        if config.closure_sampler == "auto":
+            _logger.info("checkpoint predates closure_sampler; continuing "
+                         "with the scatter sampler it was written with")
+            sampler = "scatter"
+    extra.pop("_telemetry", None)
+    labels = extra.get("_labels") if warm else None
+    key = prng.wrap_key_data(key_data, device=slab.device)
+    saved = {k: extra.get(k) for k in
+             ("algorithm", "n_p", "tau", "delta", "gamma", "warm_start",
+              "align_frac", "closure_sampler")}
+    # written before the closure_tau knob: such runs inserted with no bar
+    ctau_migrated = "closure_tau" not in extra
+    extra.setdefault("closure_tau", None)
+    if extra["closure_tau"] != config.closure_tau:
+        if ctau_migrated:
+            raise ValueError(
+                f"checkpoint {path} predates the closure_tau knob "
+                f"(checkpoint-format migration backfills closure_tau=None: "
+                f"such runs inserted with no bar); resuming with "
+                f"{config.closure_tau} would mix insert semantics")
+        raise ValueError(
+            f"checkpoint {path} was written with closure_tau="
+            f"{extra['closure_tau']}; resuming with {config.closure_tau} "
+            f"would mix insert semantics")
+    want = {"algorithm": config.algorithm, "n_p": config.n_p,
+            "tau": config.tau, "delta": config.delta, "gamma": config.gamma,
+            "warm_start": config.warm_start,
+            "align_frac": config.align_frac, "closure_sampler": sampler}
+    mismatch = {k: (saved[k], want[k]) for k in want
+                if saved[k] is not None and saved[k] != want[k]}
+    if slab.n_nodes != in_nodes:
+        mismatch["graph"] = (slab.n_nodes, in_nodes)
+    elif slab.capacity < in_cap:
+        # the caller asked for more room: growth preserves results
+        _logger.info("growing resumed slab capacity %d -> %d to honor the "
+                     "requested pack size", slab.capacity, in_cap)
+        slab = grow_slab(slab, in_cap)
+    elif slab.capacity > in_cap:
+        _logger.info("resuming with auto-grown slab capacity %d (freshly "
+                     "packed: %d)", slab.capacity, in_cap)
+    if mismatch:
+        raise ValueError(
+            f"checkpoint {path} was written by a different run "
+            f"configuration: {mismatch} (saved, requested)")
+    return (slab, start_round, key, history, labels,
+            bool(extra.get("converged", False)), sampler)
+
+
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   key: Optional[torch.Tensor] = None,
+                  checkpoint_path: Optional[str] = None,
+                  checkpoint_every: int = 1,
+                  resume: bool = False,
                   on_round=None,
                   n_closure: Optional[int] = None) -> ConsensusResult:
     """Iterate rounds to delta-convergence (or ``max_rounds``), then run the
-    final re-detection.  Runs on the slab's device."""
+    final re-detection.  Runs on the slab's device.
+
+    ``checkpoint_path`` persists the state every ``checkpoint_every``
+    rounds and on convergence; with ``resume`` an existing checkpoint
+    restarts the loop where it stopped (its key, slab, history and labels
+    replace the caller's)."""
     dev = slab.device
     if key is None:
         key = prng.key(config.seed, dev)
@@ -126,23 +205,41 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         n_closure = int(slab.num_alive())   # L := |E0|
     n_closure = int(n_closure)
     _validate_config(config)
+    # "auto" is csr: the port has no edge-sharded mesh
+    sampler = "csr" if config.closure_sampler == "auto" \
+        else config.closure_sampler
     n_p = config.n_p
     warm = config.warm_start and getattr(detect, "supports_init", False)
     align_ok = getattr(detect, "supports_align", False)
     detect_warm = (getattr(detect, "warm_variant", None) or detect) \
         if warm else detect
     detect_refresh = getattr(detect, "refresh_variant", None) or detect
-    # weights <- 1.0 at loop start (fc:135-136)
-    slab = slab.with_weights(torch.where(slab.alive, 1.0, 0.0))
 
-    history: List[dict] = []
+    cur_labels: Optional[torch.Tensor] = None
+    if resume and checkpoint_path is not None and \
+            os.path.exists(checkpoint_path):
+        (slab, start_round, key, prior_history, cur_labels,
+         resumed_converged, sampler) = _resume_from_checkpoint(
+            checkpoint_path, slab, config, warm, sampler)
+    else:
+        start_round = 0
+        prior_history = []
+        resumed_converged = False
+        # weights <- 1.0 at loop start (fc:135-136)
+        slab = slab.with_weights(torch.where(slab.alive, 1.0, 0.0))
+
+    history: List[dict] = list(prior_history)
     pstate = policy.state_from_history(history)
     budget_noop = None
-    converged = False
-    rounds = 0
-    cold_start_round = 0
+    converged = resumed_converged
+    rounds = start_round
+    end_round = start_round if resumed_converged else config.max_rounds
+    # the round that starts from singletons runs the full-sweep detector:
+    # round 0, or the first resumed round of a checkpoint without labels
+    cold_start_round = start_round if cur_labels is None else -1
     sing = torch.arange(slab.n_nodes, device=dev).expand(n_p, slab.n_nodes)
-    cur_labels = sing if warm else None
+    if warm and cur_labels is None:
+        cur_labels = sing
     prev_round_labels = sing
 
     def round_mode(r0: int) -> str:
@@ -205,8 +302,8 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         slab = dataclasses.replace(slab, d_cap=new_d_cap, d_hyb=new_hyb,
                                    hub_cap=new_hub, agg_cap=new_agg)
 
-    r = 0
-    while r < config.max_rounds:
+    r = start_round
+    while r < end_round:
         maybe_regrow_budgets()
         pre_slab = slab
         k = prng.stream(key, prng.STREAM_ROUND, r)
@@ -219,12 +316,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                 slab, k, round_detect, n_p, config.tau, config.delta,
                 n_closure, init_labels=sing if is_cold else cur_labels,
                 align=align_now(r) and not is_cold,
-                closure_tau=config.closure_tau, prev_labels=cur_labels)
+                closure_tau=config.closure_tau, prev_labels=cur_labels,
+                sampler=sampler)
         else:
             slab_new, new_labels, stats = consensus_round(
                 slab, k, round_detect, n_p, config.tau, config.delta,
                 n_closure, closure_tau=config.closure_tau,
-                prev_labels=prev_round_labels)
+                prev_labels=prev_round_labels, sampler=sampler)
         dropped = int(stats.n_dropped)
         if config.auto_grow and dropped > 0:
             # grow from the pre-round state and replay the round: same key,
@@ -252,13 +350,33 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         if on_round is not None:
             on_round(entry)
         converged = bool(stats.converged)
+        if checkpoint_path is not None and \
+                (rounds % checkpoint_every == 0 or converged):
+            from fastconsensus_tpu_torch.utils import checkpoint as ckpt
+
+            ckpt.save_checkpoint(
+                checkpoint_path, slab, rounds, prng.key_data(key), history,
+                extra={"algorithm": config.algorithm, "n_p": n_p,
+                       "tau": config.tau, "delta": config.delta,
+                       "gamma": config.gamma,
+                       "warm_start": config.warm_start,
+                       "align_frac": config.align_frac,
+                       "closure_sampler": sampler,
+                       "closure_tau": config.closure_tau,
+                       # the port sizes member chunks from memory alone
+                       "member_seconds": None,
+                       "converged": converged},
+                labels=cur_labels if warm else None)
         if converged:
             break
 
     maybe_regrow_budgets()
     final_keys = prng.partition_keys(
         prng.stream(key, prng.STREAM_FINAL), n_p)
-    final_detect = detect_warm if (warm and rounds > 0) else detect
+    # the warm variant only when the seed labels come from real detection
+    final_detect = detect_warm if (
+        warm and (cold_start_round == -1 or rounds > start_round)) \
+        else detect
     final_labels = final_detect(slab, final_keys,
                                 cur_labels if warm else None)
     all_labels = final_labels.cpu().numpy().astype(np.int32)
@@ -271,16 +389,25 @@ def fast_consensus(edges: np.ndarray, n_nodes: int,
                    algorithm: str = "louvain", n_p: int = 20,
                    tau: float = 0.2, delta: float = 0.02, seed: int = 0,
                    max_rounds: int = 64, gamma: float = 1.0,
-                   device=None) -> ConsensusResult:
+                   device=None, capacity: Optional[int] = None,
+                   **config) -> ConsensusResult:
     """Edges in, partitions out (the reference's convenience API).  Runs
-    on CUDA unless ``device`` names another device."""
+    on CUDA unless ``device`` names another device.  ``capacity`` sizes
+    the slab (default ``2*E + 16``); other :class:`ConsensusConfig` fields
+    (``auto_grow``, ``warm_start``, ``align_frac``, ``closure_sampler``,
+    ``closure_tau``) pass through.  A ``gamma`` the detector does not take
+    is ignored with a warning and reset to 1.0, as the CLI does."""
     from fastconsensus_tpu_torch.models.registry import (get_detector,
                                                          supports_param)
 
     dev = resolve_device(device)
-    slab = pack_edges(edges, n_nodes, device=dev)
+    slab = pack_edges(edges, n_nodes, capacity=capacity, device=dev)
     if gamma != 1.0 and not supports_param(algorithm, "gamma"):
+        warnings.warn(
+            f"gamma={gamma} ignored for algorithm={algorithm!r} (resolution "
+            f"applies to modularity detectors)", stacklevel=2)
         gamma = 1.0
     cfg = ConsensusConfig(algorithm=algorithm, n_p=n_p, tau=tau, delta=delta,
-                          seed=seed, max_rounds=max_rounds, gamma=gamma)
+                          seed=seed, max_rounds=max_rounds, gamma=gamma,
+                          **config)
     return run_consensus(slab, get_detector(algorithm, gamma=gamma), cfg)

@@ -52,10 +52,13 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
                    k_closure: torch.Tensor, n_p: int, tau: float,
                    delta: float, n_closure: int,
                    closure_tau: Optional[float] = None,
-                   prev_labels: Optional[torch.Tensor] = None
+                   prev_labels: Optional[torch.Tensor] = None,
+                   sampler: str = "csr"
                    ) -> Tuple[GraphSlab, RoundStats]:
     """Everything after detection: co-membership -> threshold ->
-    convergence -> closure (CSR wedge sampler) -> repair."""
+    convergence -> closure -> repair.  ``sampler`` picks the wedge
+    sampler: "csr" (argsort of the directed edges, uniform anchors) or
+    "scatter" (sort-free partner draws); the two draw different wedges."""
     dev = slab.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     counts = cops.comembership_counts(labels, slab.src, slab.dst)
@@ -66,9 +69,12 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
     n_closed = n_repaired = n_dropped = zero
     if not bool(st_mid.converged):
         n0 = slab.num_alive()
-        csr = cops.build_csr(slab)
-        cu, cv, cvalid = cops.sample_wedges(k_closure, csr, slab.n_nodes,
-                                            n_closure)
+        if sampler == "csr":
+            cu, cv, cvalid = cops.sample_wedges(
+                k_closure, cops.build_csr(slab), slab.n_nodes, n_closure)
+        else:
+            cu, cv, cvalid = cops.sample_wedges_scatter(k_closure, slab,
+                                                        n_closure)
         cw = cops.comembership_counts(labels, cu, cv)
         if closure_tau is not None:
             bar = cops._f32(cops._f32(closure_tau) * cops._f32(n_p))
@@ -118,7 +124,8 @@ def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
                     init_labels: Optional[torch.Tensor] = None,
                     align: bool = False,
                     closure_tau: Optional[float] = None,
-                    prev_labels: Optional[torch.Tensor] = None
+                    prev_labels: Optional[torch.Tensor] = None,
+                    sampler: str = "csr"
                     ) -> Tuple[GraphSlab, torch.Tensor, RoundStats]:
     """One full round: ``(next_slab, labels[n_p, N], stats)``.  Keys derive
     as in the reference: ``split(key)`` into detection and closure, then
@@ -129,6 +136,6 @@ def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
     labels = detect(slab, keys, init_labels)
     slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau, delta,
                                  n_closure, closure_tau=closure_tau,
-                                 prev_labels=prev_labels)
+                                 prev_labels=prev_labels, sampler=sampler)
     return slab, labels, stats
 

@@ -1,7 +1,9 @@
 """Algorithm dispatch: the ``--alg`` seam.
 
-Louvain, LPM and Leiden are ported; the reference's host C++ detectors
-(cnm, infomap) raise a clear "not yet ported" error.
+All five of the reference's detectors: Louvain, LPM and Leiden on the
+device, CNM and Infomap as host C++ (``native/``).  A host detector whose
+library did not build raises ``NotImplementedError`` carrying the
+compiler's error; there is no fallback.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ from typing import Callable, Dict
 from fastconsensus_tpu_torch.models.base import Detector
 
 _REGISTRY: Dict[str, Callable[..., Detector]] = {}
-NOT_YET_PORTED = ("cnm", "infomap")
 
 
 def register(name: str):
@@ -33,13 +34,9 @@ def supports_param(name: str, param: str) -> bool:
 
 
 def _check(name: str) -> None:
-    if name in _REGISTRY:
-        return
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not yet ported to the PyTorch package "
-            f"(ported: {available()})")
-    raise ValueError(f"unknown algorithm {name!r}; available: {available()}")
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown algorithm {name!r}; available: {available()}")
 
 
 def get_detector(name: str, gamma: float = 1.0) -> Detector:
@@ -72,3 +69,27 @@ def _louvain(gamma: float = 1.0) -> Detector:
 def _leiden(gamma: float = 1.0) -> Detector:
     from fastconsensus_tpu_torch.models.leiden import leiden, make_leiden
     return leiden if gamma == 1.0 else make_leiden(gamma=gamma)
+
+
+def _require_native(name: str) -> None:
+    from fastconsensus_tpu_torch import native
+
+    try:
+        native.load()
+    except native.NativeBuildError as e:
+        raise NotImplementedError(
+            f"algorithm {name!r} needs the host C++ library: {e}") from e
+
+
+@register("cnm")
+def _cnm() -> Detector:
+    _require_native("cnm")
+    from fastconsensus_tpu_torch.models.cnm import cnm
+    return cnm
+
+
+@register("infomap")
+def _infomap() -> Detector:
+    _require_native("infomap")
+    from fastconsensus_tpu_torch.models.infomap import infomap
+    return infomap

@@ -5,13 +5,14 @@ Counterpart of ``fastconsensus_tpu/ops/consensus_ops.py``:
 * co-membership accumulation  -> comembership_counts
 * tau-thresholding            -> threshold_weights
 * delta-convergence           -> convergence_stats
-* triadic closure             -> build_csr + sample_wedges + insert_edges_hash
+* triadic closure             -> build_csr + sample_wedges (CSR sampler)
+                                 or sample_wedges_scatter (sort-free),
+                                 then insert_edges_hash
 * singleton repair            -> singleton_candidates
 
 Scatters with duplicate live indices use ``scatter_reduce`` (min/max) or
 integer-valued adds, never ``index_put_``, so results are deterministic on
-the card.  The scatter (sort-free) wedge sampler of the mesh path is not
-ported yet.
+the card.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ from fastconsensus_tpu_torch.utils import prng
 
 # Members per chunk of the [members, E] co-membership compare.
 _COUNT_ELEMS = 1 << 27
+# Bound on a scatter-sampler batch group's [G, 2*capacity] priorities and
+# [G*(n+1)] argmax segments (the reference's constant).  Groups only batch
+# the draws: the sampled wedges do not depend on it.
+SCATTER_GROUP_ELEMS = 32_000_000
 
 
 def comembership_counts(labels: torch.Tensor, src: torch.Tensor,
@@ -120,6 +125,77 @@ def sample_wedges(key: torch.Tensor, csr: CSR, n_nodes: int, n_samples: int
     u = torch.minimum(a, b)
     v = torch.maximum(a, b)
     return u, v, valid & (u != v)
+
+
+def sample_wedges_scatter(key: torch.Tensor, slab: GraphSlab,
+                          n_samples: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free triadic-closure sampling, as the reference's: per draw,
+    every node ``u`` picks two independent uniform alive neighbours
+    ``p1(u)``, ``p2(u)`` (each a scatter-argmax of content-keyed
+    per-directed-edge priorities), and ``(p1, p2)`` is its candidate when
+    they differ.  ``ceil(n_samples / N)`` draws; a key-rotated window of
+    ``n_samples`` entries of the (draw, node) grid is kept.  Canonical
+    ``(u, v, valid)``."""
+    n = slab.n_nodes
+    srcd, dstd, _, ad = slab.directed()
+    valid_e = ad & (srcd != dstd)
+    u, v, ok = partner_draw_batches(key, srcd, dstd, valid_e, n,
+                                    slab.capacity, n_samples)
+    return torch.where(ok, u, 0), torch.where(ok, v, 0), ok
+
+
+def partner_draw_batches(key: torch.Tensor, srcd: torch.Tensor,
+                         dstd: torch.Tensor, valid_e: torch.Tensor, n: int,
+                         capacity: int, n_samples: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scatter sampler's draw engine: draw ``d`` uses the two keys of
+    ``split(fold_in(key, d))``; G draws run as one flat scatter-argmax over
+    (draw, node) segments, in groups of ``min(draws, SCATTER_GROUP_ELEMS //
+    max(2*capacity, n+1))`` draws (the reference's ``lax.scan`` over
+    groups, as a loop).  The kept window starts at ``randint(fold_in(key,
+    draws), (), 0, draws*n)`` of the unpadded grid and wraps, so neither
+    capacity nor the group size changes the result."""
+    dev = srcd.device
+    draws = -(-n_samples // max(n, 1))
+    if draws == 0:
+        z = torch.zeros((0,), dtype=torch.int64, device=dev)
+        return z, z, torch.zeros((0,), dtype=torch.bool, device=dev)
+    total = draws * n
+    if total >= 2 ** 31:
+        raise ValueError(
+            f"wedge grid draws*n = {total} exceeds int32 indexing; "
+            "shard the closure-candidate axis before scaling here")
+    group = min(draws, max(1, SCATTER_GROUP_ELEMS // max(2 * capacity,
+                                                         n + 1)))
+    n_groups = -(-draws // group)
+    ks = prng.split(prng.fold_in(
+        key, torch.arange(n_groups * group, dtype=torch.int64, device=dev)))
+    seg_e = torch.where(valid_e, srcd, n)
+
+    def partners(keys: torch.Tensor):
+        g = keys.shape[0]
+        pri = seg.pair_jitter(keys, srcd[None], dstd[None], 1.0)
+        seg_ids = (torch.arange(g, device=dev)[:, None] * (n + 1) +
+                   seg_e[None, :]).reshape(-1)
+        best, _, has = seg.scatter_argmax_label(
+            seg_ids, pri.reshape(-1), dstd.expand(g, -1).reshape(-1),
+            valid_e.expand(g, -1).reshape(-1), g * (n + 1))
+        return (best.reshape(g, n + 1)[:, :n], has.reshape(g, n + 1)[:, :n])
+
+    us, vs, oks = [], [], []
+    for g0 in range(0, n_groups * group, group):
+        p1, h1 = partners(ks[g0:g0 + group, 0])
+        p2, h2 = partners(ks[g0:g0 + group, 1])
+        oks.append(h1 & h2 & (p1 != p2))
+        us.append(torch.minimum(p1, p2))
+        vs.append(torch.maximum(p1, p2))
+    off = prng.randint(prng.fold_in(key, draws), (), 0, total)
+    ar = torch.arange(n_samples, dtype=torch.int64, device=dev)
+    rem = total - off
+    idx = torch.where(ar < rem, ar + off, ar - rem)
+    return (torch.cat(us).reshape(-1)[idx], torch.cat(vs).reshape(-1)[idx],
+            torch.cat(oks).reshape(-1)[idx])
 
 
 def insert_edges_hash(slab: GraphSlab, cand_u: torch.Tensor,

@@ -1,8 +1,11 @@
 """Host-side I/O boundary: edgelist parsing and partition writers.
 
-A copy of the reference's ``utils/io.py`` with its pure-Python parser only
-(the reference first tries a native C++ parser; both accept the same
-files, and the port builds no host C++).
+A copy of the reference's ``utils/io.py``: the host C++ parser
+(``native.parse_edgelist``) reads the file when the library is already
+loaded (a CNM or Infomap run loads it before reading its input), the
+pure-Python parser otherwise and on any line the fast parser rejects (its
+errors name the line).  Both accept the same files.  Reading builds
+nothing: a device-only run needs no host compiler.
 
 Mirrors the reference's file formats while fixing its ingest bugs:
 
@@ -46,6 +49,23 @@ def read_edgelist(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarr
     no weight column, and ``original_ids[i]`` is the input id of compact
     node ``i`` (sorted ascending).
     """
+    from fastconsensus_tpu_torch import native
+
+    if native.loaded():
+        try:
+            u64, v64, w64 = native.parse_edgelist(path)
+        except ValueError:
+            u64 = None   # re-read below: the Python errors name the line
+        if u64 is not None and u64.shape[0] > 0:
+            return _compact(u64, v64,
+                            None if w64 is None else w64.astype(np.float32))
+    return read_edgelist_python(path)
+
+
+def read_edgelist_python(path: str
+                         ) -> Tuple[np.ndarray, Optional[np.ndarray],
+                                    np.ndarray]:
+    """:func:`read_edgelist` in pure Python; its errors name the line."""
     us: List[int] = []
     vs: List[int] = []
     ws: List[float] = []

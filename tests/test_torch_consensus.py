@@ -162,14 +162,18 @@ def test_cli_output_trees_byte_identical(monkeypatch, tmp_path):
         assert mismatch == [] and errors == [], (tree, mismatch, errors)
 
 
-@pytest.mark.parametrize("alg", ["lpm", "leiden"])
+TAU = {"lpm": 0.8, "leiden": 0.2, "cnm": 0.7, "infomap": 0.6}
+
+
+@pytest.mark.parametrize("alg", ["lpm", "leiden", "cnm", "infomap"])
 def test_run_consensus_karate_identical_by_alg(monkeypatch, karate_slab,
                                                alg):
-    """LPM (no key alignment) and Leiden (theta refinement cold, greedy
-    warm and refresh variants) through the same driver."""
+    """LPM (no key alignment), Leiden (theta refinement cold, greedy warm
+    and refresh variants) and the host C++ detectors CNM and Infomap (no
+    warm start: every round cold) through the same driver."""
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
-    cfg = dict(algorithm=alg, n_p=6, tau={"lpm": 0.8, "leiden": 0.2}[alg],
-               delta=0.02, max_rounds=3, seed=2)
+    cfg = dict(algorithm=alg, n_p=6, tau=TAU[alg], delta=0.02, max_rounds=3,
+               seed=2)
     jres = jrun(karate_slab, jdetector(alg), JConfig(**cfg))
     tres = run_consensus(port_slab(karate_slab), get_detector(alg),
                          ConsensusConfig(**cfg))
@@ -177,14 +181,36 @@ def test_run_consensus_karate_identical_by_alg(monkeypatch, karate_slab,
     _compare_runs(jres, tres)
 
 
-@pytest.mark.parametrize("alg", ["lpm", "leiden"])
+@pytest.mark.parametrize("alg", ["lpm", "leiden", "cnm", "infomap"])
 def test_cli_output_trees_byte_identical_by_alg(monkeypatch, tmp_path, alg):
+    compare_cli_trees(monkeypatch, tmp_path, ["--alg", alg])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--closure-sampler", "scatter"],
+    ["-g", "0.5"],
+    ["--alg", "leiden", "-g", "0.5"],
+    ["--alg", "cnm", "-g", "0.5"],          # ignored with a warning
+    # at the CLI's default n_p and rounds, closure grows a 100-slot slab
+    # in round 5; without growth an 85-slot one drops candidates
+    ["-np", "20", "--max-rounds", "64", "--seed", "0", "--capacity", "100"],
+    ["-np", "20", "--max-rounds", "64", "--seed", "0", "--no-grow",
+     "--capacity", "85"],
+    ["--align-frac", "0"],
+    ["--cold-detect"],
+], ids=["scatter", "gamma", "leiden_gamma", "cnm_gamma", "capacity",
+        "no_grow", "align_frac_0", "cold_detect"])
+def test_cli_flags_byte_identical(monkeypatch, tmp_path, flags):
+    compare_cli_trees(monkeypatch, tmp_path, flags)
+
+
+def compare_cli_trees(monkeypatch, tmp_path, flags):
     from fastconsensus_tpu import cli as jcli
     from fastconsensus_tpu_torch import cli as tcli
 
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
     args = ["-f", str(KARATE), "-np", "6", "--max-rounds", "3", "--seed",
-            "2", "--alg", alg, "--quiet"]
+            "2", "--quiet"] + flags
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
     assert jcli.main(args + ["--out-dir", str(tmp_path / "ref")]) == 0
@@ -192,24 +218,91 @@ def test_cli_output_trees_byte_identical_by_alg(monkeypatch, tmp_path, alg):
                              "--device", "cpu"]) == 0
     trees = sorted(p.name for p in (tmp_path / "ref").iterdir())
     assert trees == sorted(p.name for p in (tmp_path / "port").iterdir())
+    n_p = tcli.build_parser().parse_args(args).n_p
     for tree in trees:
         files = sorted(os.listdir(tmp_path / "ref" / tree))
-        assert len(files) == 6
+        assert len(files) == n_p
         match, mismatch, errors = filecmp.cmpfiles(
             tmp_path / "ref" / tree, tmp_path / "port" / tree, files,
             shallow=False)
         assert mismatch == [] and errors == [], (tree, mismatch, errors)
 
 
-def test_cli_rejects_unported_algorithm_and_missing_cuda(tmp_path, capsys):
-    from fastconsensus_tpu_torch import cli as tcli
+def test_cli_run_flags_take_effect(monkeypatch):
+    """The flag cases above change the run: growth, drops, the scatter
+    sampler's other wedges, the ignored gamma (fast_consensus takes the
+    same fields)."""
+    from fastconsensus_tpu_torch.consensus import fast_consensus
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
 
-    rc = tcli.main(["-f", str(KARATE), "--alg", "cnm", "--device", "cpu",
-                    "--out-dir", str(tmp_path)])
-    assert rc == 2 and "not yet ported" in capsys.readouterr().err
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
+    edges, _, ids = read_edgelist(str(KARATE))
+    run = dict(n_p=6, max_rounds=3, seed=2, device="cpu")
+    base = fast_consensus(edges, len(ids), **run)
+    grown = fast_consensus(edges, len(ids), capacity=100, n_p=20, seed=0,
+                           device="cpu")
+    assert grown.history[-1]["capacity"] > 100
+    dropped = fast_consensus(edges, len(ids), capacity=85, auto_grow=False,
+                             n_p=20, seed=0, device="cpu")
+    assert sum(h["n_dropped"] for h in dropped.history) > 0
+    assert dropped.graph.capacity == 85
+    scatter = fast_consensus(edges, len(ids), closure_sampler="scatter",
+                             **run)
+    assert [h["n_closure_added"] for h in scatter.history] != \
+        [h["n_closure_added"] for h in base.history]
+    with pytest.warns(UserWarning, match="gamma=0.5 ignored"):
+        cnm = fast_consensus(edges, len(ids), algorithm="cnm", tau=0.7,
+                             gamma=0.5, **run)
+    assert all(h["cold"] for h in cnm.history)
+
+
+def test_cli_rejects_unported_algorithm_and_missing_cuda(tmp_path, capsys,
+                                                         monkeypatch):
+    """Every algorithm is ported now: an unknown ``--alg`` exits 2, and a
+    host detector whose C++ does not build exits 2 with the compiler's
+    error (no fallback); without CUDA the default device exits 2."""
+    from fastconsensus_tpu_torch import cli as tcli
+    from fastconsensus_tpu_torch import native
+    from fastconsensus_tpu_torch.models import registry
+
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["-f", str(KARATE), "--alg", "walktrap", "--device",
+                   "cpu", "--out-dir", str(tmp_path)])
+    assert exc.value.code == 2
+    assert "invalid choice: 'walktrap'" in capsys.readouterr().err
+    fake = tmp_path / "fake-cxx"
+    fake.write_text("#!/bin/sh\necho 'fake-cxx: cannot build' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(native, "CXX", str(fake))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    native.reset()
+    registry._get_cached.cache_clear()
+    try:
+        rc = tcli.main(["-f", str(KARATE), "--alg", "cnm", "--device", "cpu",
+                        "--out-dir", str(tmp_path)])
+        err = capsys.readouterr().err
+        assert rc == 2 and "fake-cxx: cannot build" in err, err
+        assert not any(p.name.startswith("out_partitions")
+                       for p in tmp_path.iterdir())
+    finally:
+        monkeypatch.undo()
+        native.reset()
     if not torch.cuda.is_available():
         rc = tcli.main(["-f", str(KARATE), "--out-dir", str(tmp_path)])
         assert rc == 2 and "CUDA is not available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("alg", ["louvain", "leiden"])
+def test_run_consensus_scatter_sampler_identical(monkeypatch, karate_slab,
+                                                 alg):
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
+    cfg = dict(algorithm=alg, n_p=6, tau=0.2, delta=0.02, max_rounds=3,
+               seed=4, closure_sampler="scatter")
+    jres = jrun(karate_slab, jdetector(alg), JConfig(**cfg))
+    tres = run_consensus(port_slab(karate_slab), get_detector(alg),
+                         ConsensusConfig(**cfg))
+    assert sum(h["n_closure_added"] for h in jres.history) > 0
+    _compare_runs(jres, tres)
 
 
 def test_entry_points_default_to_cuda():

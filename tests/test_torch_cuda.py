@@ -226,3 +226,83 @@ def test_consensus_on_card_equals_cpu(card, monkeypatch, path):
     for a, b in zip(gpu.history, cpu.history):
         assert a["n_unconverged"] == b["n_unconverged"]
         assert a["n_alive"] == b["n_alive"]
+
+
+def _planted(seed, n=1500, m=30000, p_out=0.03):
+    rng = np.random.default_rng(seed)
+    truth = rng.integers(0, 10, n)
+    src, dst = rng.integers(0, n, (2, m))
+    keep = (truth[src] == truth[dst]) | (rng.random(m) < p_out)
+    return np.stack([src[keep], dst[keep]], 1), n
+
+
+def test_scatter_sampler_on_card_equals_cpu(card):
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.ops import consensus_ops as cops
+    from fastconsensus_tpu_torch.utils import prng
+
+    edges, n = _planted(7)
+    got = []
+    for dev in ("cpu", card):
+        slab = pack_edges(edges, n, device=dev)
+        got.append(cops.sample_wedges_scatter(prng.key(3, dev), slab, 7001))
+    for a, b in zip(*got):
+        assert b.device.type == "cuda"
+        assert torch.equal(a, b.cpu())
+    assert int(got[0][2].sum()) > 0
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+def test_host_detectors_on_card_equal_cpu(card, alg):
+    """The host C++ detectors take a slab on the card and put the labels
+    back there; whole runs (the tail on each device) are identical."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.utils import prng
+
+    edges, n = _planted(8)
+    det = get_detector(alg)
+    keys = prng.partition_keys(prng.key(1, card), 4)
+    labels = det(pack_edges(edges, n, device=card), keys)
+    assert labels.device.type == "cuda" and labels.dtype == torch.int64
+    assert torch.equal(labels.cpu(), det(pack_edges(edges, n, device="cpu"),
+                                         keys.cpu()))
+    cfg = ConsensusConfig(algorithm=alg, n_p=4, max_rounds=2, seed=5,
+                          delta=0.0, tau={"cnm": 0.7, "infomap": 0.6}[alg])
+    cpu, gpu = (run_consensus(pack_edges(edges, n, device=dev), det, cfg)
+                for dev in ("cpu", card))
+    np.testing.assert_array_equal(np.stack(gpu.partitions),
+                                  np.stack(cpu.partitions))
+    assert [h["n_alive"] for h in gpu.history] == \
+        [h["n_alive"] for h in cpu.history]
+
+
+def test_checkpoint_written_on_card_resumes_on_cpu(card, tmp_path):
+    """A run checkpointed on the card resumes on the CPU to the same
+    partitions as the uninterrupted card run (and the file holds int32
+    indices whatever device wrote it)."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+
+    edges, n = _planted(9)
+    cfg = dict(n_p=4, tau=0.2, delta=0.0, seed=2)
+    full = run_consensus(pack_edges(edges, n, device=card),
+                         get_detector("louvain"),
+                         ConsensusConfig(max_rounds=3, **cfg))
+    path = str(tmp_path / "ck.npz")
+    run_consensus(pack_edges(edges, n, device=card), get_detector("louvain"),
+                  ConsensusConfig(max_rounds=1, **cfg), checkpoint_path=path)
+    with np.load(path) as z:
+        assert z["src"].dtype == np.int32 and z["labels"].dtype == np.int32
+    resumed = run_consensus(pack_edges(edges, n, device="cpu"),
+                            get_detector("louvain"),
+                            ConsensusConfig(max_rounds=3, **cfg),
+                            checkpoint_path=path, resume=True)
+    np.testing.assert_array_equal(np.stack(resumed.partitions),
+                                  np.stack(full.partitions))
+    assert [h["n_alive"] for h in resumed.history] == \
+        [h["n_alive"] for h in full.history]

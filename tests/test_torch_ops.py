@@ -326,6 +326,45 @@ def test_csr_and_wedges(planted, seed):
         eq(a, b)
 
 
+@pytest.mark.parametrize("graph,seed,n_samples,group_elems", [
+    # n_samples % N != 0 (a partial last draw), one batch group
+    ("karate", 0, 100, 32_000_000),
+    ("karate", 1, 1000, 32_000_000),
+    # the group cap cut low: karate in groups of 2 draws (300 samples are
+    # 9 draws, so the last group is padded with one draw outside the
+    # window), the planted slab (capacity 5,106) in groups of 1
+    ("karate", 2, 300, 700),
+    ("planted", 3, 3001, 10_000),
+    ("planted", 4, 4000, 32_000_000),
+])
+def test_sample_wedges_scatter(karate_slab, planted, monkeypatch, graph,
+                               seed, n_samples, group_elems):
+    """Bit-equal to the reference's; the group size only batches draws."""
+    js, ts = (karate_slab, port_slab(karate_slab)) if graph == "karate" \
+        else planted[:2]
+    assert n_samples % js.n_nodes != 0 or graph == "planted"
+    monkeypatch.setattr(tcops, "SCATTER_GROUP_ELEMS", group_elems)
+    draws = -(-n_samples // js.n_nodes)
+    group = min(draws, max(1, group_elems // max(2 * ts.capacity,
+                                                 js.n_nodes + 1)))
+    assert (group < draws) == (group_elems < 32_000_000)
+    key = jax.random.key(seed)
+    got = tcops.sample_wedges_scatter(port_key(key), ts, n_samples)
+    want = jcops.sample_wedges_scatter(key, js, n_samples)
+    for a, b in zip(got, want):
+        eq(a, b)
+    assert 0 < int(got[2].sum()) < n_samples
+
+
+def test_sample_wedges_scatter_rejects_int32_overflow(karate_slab):
+    ts = port_slab(karate_slab)
+    key = port_key(jax.random.key(0))
+    with pytest.raises(ValueError, match="exceeds int32 indexing"):
+        tcops.sample_wedges_scatter(key, ts, 2 ** 31)
+    u, v, ok = tcops.sample_wedges_scatter(key, ts, 0)
+    assert u.shape == v.shape == ok.shape == (0,)
+
+
 @pytest.mark.parametrize("tight", [False, True])
 def test_insert_edges_hash(planted, tight):
     """Duplicates, candidates already present, hash-colliding candidates and
