@@ -52,12 +52,31 @@ Phases (any failure exits non-zero without the final line):
              uninterrupted against 2 rounds resumed to 4, and against a
              card resume of a checkpoint the CPU wrote: equal partitions,
              histories and output trees
+12. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
+             delta=0.02, seed 0, at most 16 rounds): a parent run, a child
+             graph with a seeded 1% edge delta (serve/delta.py), the
+             incremental run from the parent's partitions with the
+             vertices outside the delta's neighborhood frozen (at most 4
+             rounds), a from-scratch run on the child,
+             and the incremental run again on the CPU: identical
+             partitions and integer history, frozen vertices at their
+             parent labels; row_totals per shape as in 6
+13. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
+             (louvain, n_p=20, tau=0.2, delta=0.02, closure_tau=0.2, seeds
+             11/22/33/44, at most 16 rounds): A, four emailEu stand-ins
+             (graph seeds 42-45, the matmul sweep); B, lfr10k and three
+             children of seeded 2% edge deltas (the hash sweep); each job
+             equal to its solo run on the card; the bucket, batch wall,
+             solo walls, peak device memory of the batch and of the
+             largest solo run, splits and rounds printed
 
-Kernel launch counters are reset just before phases 5-8 and 11 and read
-just after: phases 6-8 and 11 must launch ``row_totals``,
-phase 5 ``fused_move_rows``.  The second-to-last lines are the kernels'
-JSON record and the card's name and power limit; the last line is the
-device record.
+Kernel launch counters are reset just before phases 5-8, 11, 12 (its
+incremental card run) and 13 and read just after: phases 6-8, 11 and 12
+must launch ``row_totals``, phase 5 ``fused_move_rows``; phase 13's
+bucketed slabs take the matmul and hash sweeps, which launch no kernel
+of the port (a job split off to a solo run may).  The second-to-last
+lines are the kernels' JSON record and the card's name and power limit;
+the last line is the device record.
 """
 
 from __future__ import annotations
@@ -100,6 +119,21 @@ def sync() -> None:
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def reset_peak() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def read_peak():
+    """Peak allocated device bytes since :func:`reset_peak` (None off
+    the card)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
 
 
 def median_ms(fn, runs: int = 25) -> float:
@@ -406,10 +440,10 @@ def phase_karate(state):
 
 
 def _run(edges, n, device, alg="louvain", no_rows=False, peaks=None,
-         **cfg):
+         run_kw=None, **cfg):
     """One consensus run: ``(result, wall s, per-round s)``.  ``no_rows``
     packs without a row width (d_cap 0); ``peaks`` collects each round's
-    peak device memory."""
+    peak device memory; ``run_kw`` passes on to ``run_consensus``."""
     import dataclasses
 
     import torch
@@ -436,7 +470,7 @@ def _run(edges, n, device, alg="louvain", no_rows=False, peaks=None,
     t0 = time.perf_counter()
     res = run_consensus(slab, get_detector(alg),
                         ConsensusConfig(algorithm=alg, **cfg),
-                        on_round=on_round)
+                        on_round=on_round, **(run_kw or {}))
     sync()
     wall = time.perf_counter() - t0
     per_round = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
@@ -924,6 +958,280 @@ def phase_resume(state):
         launches=launches["row_totals"], by_shape=per_shape)
 
 
+def _delta_child(u, v, n: int, frac: float, seed: int):
+    """A seeded edge delta of ``frac`` of the parent's canonical edges
+    (half removed, as many absent pairs added) applied through the port's
+    ``serve/delta.py``: ``(child u, child v, adds, removes)``."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.serve import delta
+
+    rng = np.random.default_rng(seed)
+    k = int(round(frac / 2 * u.shape[0]))
+    gone = rng.choice(u.shape[0], k, replace=False)
+    have = set((u * n + v).tolist())
+    adds = []
+    while len(adds) < k:
+        a, b = sorted(int(x) for x in rng.integers(0, n, 2))
+        if a != b and a * n + b not in have:
+            have.add(a * n + b)
+            adds.append([a, b])
+    adds, removes = delta.parse_delta(
+        {"adds": adds, "removes": np.stack([u[gone], v[gone]], 1).tolist()},
+        n)
+    cu, cv, _ = delta.apply_delta(u, v, None, n, adds, removes)
+    return cu, cv, adds, removes
+
+
+HISTORY_INTS = ("round", "n_alive", "n_unconverged", "n_closure_added",
+                "n_repaired", "n_dropped", "n_overflow", "n_hub_overflow",
+                "n_agg_overflow", "cold", "capacity", "n_w_zero", "n_w_full",
+                "n_frontier", "labels_changed", "labels_changed_by_member")
+
+
+def phase_delta(state):
+    """fcdelta on lfr10k: a parent run, a child graph with a seeded 1%
+    edge delta, and the incremental run from the parent's partitions
+    with the vertices outside the delta's neighborhood frozen, against a
+    from-scratch run on the child and the incremental run on the CPU."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.serve import delta
+    from fastconsensus_tpu_torch.serve.jobs import canonical_edges
+    from fastconsensus_tpu_torch.utils.metrics import nmi
+
+    data = np.load(ROOT / "bench_data" / "lfr10k.npz")
+    edges, truth = data["edges"], data["labels"]
+    n = int(truth.shape[0])
+    # bench.py's lfr10k cell runs at most 16 rounds; the incremental runs
+    # stop at delta_rounds: frozen vertices keep the parent members'
+    # labels, so the edges among them on which those members disagree
+    # never converge (and the CPU rerun sets the budget)
+    cfg = dict(n_p=state.get("delta_n_p", 20), tau=0.2, delta=0.02, seed=0,
+               max_rounds=16)
+    inc_cfg = dict(cfg, max_rounds=state.get("delta_rounds", 4))
+    u, v, _ = canonical_edges(edges, n)
+    log(f"delta: lfr10k N={n} E={u.shape[0]}, louvain n_p={cfg['n_p']} "
+        f"tau 0.2 delta 0.02 seed 0; parent and from-scratch runs up to 16 "
+        f"rounds, incremental runs {inc_cfg['max_rounds']}")
+    parent, parent_s, _ = _run(np.stack([u, v], 1), n, DEVICE, **cfg)
+    cu, cv, adds, removes = _delta_child(u, v, n, 0.01, seed=1)
+    active = delta.neighborhood_mask(cu, cv, n, adds, removes)
+    init = np.stack(parent.partitions)
+    child = np.stack([cu, cv], 1)
+    log(f"delta: child E={cu.shape[0]} (-{removes.shape[0]} "
+        f"+{adds.shape[0]} edges), active share {active.mean():.4f} "
+        f"({int(active.sum())} of {n} vertices)")
+    inc_kw = dict(init_labels=init, active_mask=active)
+    rk.reset_launches()
+    inc, inc_s, _ = _run(child, n, DEVICE, run_kw=inc_kw, **inc_cfg)
+    launches = dict(rk.LAUNCHES)
+    shapes = dict(rk.ROW_TOTALS_SHAPES)
+    full, full_s, _ = _run(child, n, DEVICE, **cfg)
+    cpu, cpu_s, _ = _run(child, n, "cpu", run_kw=inc_kw, **inc_cfg)
+    check(inc.rounds == cpu.rounds and np.array_equal(
+        np.stack(inc.partitions), np.stack(cpu.partitions)),
+        f"delta: {DEVICE} and CPU incremental partitions differ")
+    check([[h[k] for k in HISTORY_INTS] for h in inc.history] ==
+          [[h[k] for k in HISTORY_INTS] for h in cpu.history],
+          f"delta: {DEVICE} and CPU incremental histories differ")
+    frozen = ~active
+    check(all(np.array_equal(p[frozen], init[i][frozen])
+              for i, p in enumerate(inc.partitions)),
+          "delta: a frozen vertex left its parent label")
+    check(not inc.history[0]["cold"], "delta: round 0 ran cold")
+    vs_full = [nmi(a, b) for a, b in zip(inc.partitions, full.partitions)]
+    to_truth = [float(np.mean([nmi(p, truth) for p in r.partitions]))
+                for r in (parent, inc, full)]
+    for h in inc.history:
+        log(f"  incremental round {h['round']}: {h['n_alive']} alive, "
+            f"{h['n_unconverged']} unconverged, frontier {h['n_frontier']}, "
+            f"capacity {h['capacity']}")
+    runs = (parent, inc, full)
+    log(f"delta: converged parent/incremental/from scratch "
+        f"{[r.converged for r in runs]}, cold rounds "
+        f"{[[h['round'] for h in r.history if h['cold']] for r in runs]}")
+    log(f"delta: rounds parent {parent.rounds} / incremental {inc.rounds} / "
+        f"from scratch {full.rounds} / CPU incremental {cpu.rounds}; wall "
+        f"parent {parent_s:.2f}s, incremental {inc_s:.2f}s, from scratch "
+        f"{full_s:.2f}s, CPU incremental {cpu_s:.2f}s; member NMI "
+        f"incremental vs from scratch mean {np.mean(vs_full):.4f} min "
+        f"{min(vs_full):.4f}; NMI to the file's labels parent/incremental/"
+        f"from scratch {[round(x, 4) for x in to_truth]}; card == CPU "
+        f"(partitions, integer history); frozen vertices kept their parent "
+        f"labels; launches {launches} "
+        f"row_totals_launches_by_shape={sorted(shapes.items())}")
+    check(launches["row_totals"] > 0, "delta never launched row_totals")
+    per_shape = check_and_time_shapes(shapes, seed=5)
+    state.setdefault("main_paths", {})["delta"] = dict(
+        launches=launches["row_totals"], by_shape=per_shape)
+
+
+def _batch_graphs(name: str):
+    """The four graphs of a batch: ``[(edges, n)]``."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.serve.jobs import canonical_edges
+    from fastconsensus_tpu_torch.utils import synth
+
+    if name == "A":
+        # bench.py's emailEu stand-in at graph seeds 42-45
+        sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
+        return [(synth.planted_partition(1005, 42, 0.6, 0.02, seed=s,
+                                         sizes=sizes)[0], 1005)
+                for s in (42, 43, 44, 45)]
+    data = np.load(ROOT / "bench_data" / "lfr10k.npz")
+    n = int(data["labels"].shape[0])
+    u, v, _ = canonical_edges(data["edges"], n)
+    out = [(np.stack([u, v], 1), n)]
+    for seed in (1, 2, 3):
+        cu, cv, _, _ = _delta_child(u, v, n, 0.02, seed)
+        out.append((np.stack([cu, cv], 1), n))
+    return out
+
+
+def _device_busy(fn):
+    """``fn()`` under torch.profiler, tracing the card only: ``(wall s,
+    device busy s, kernels)``; busy is the union of the kernels'
+    intervals (None when the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, (_busy_us(events) / 1e6 if events else None), len(events)
+
+
+def _busy_us(events) -> float:
+    """Microseconds during which at least one of the kernel ``events``
+    ran (the union of their intervals)."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def phase_batch(state):
+    """``run_consensus_batch``: two batches of four same-bucket jobs (B =
+    4, a rung of the batch ladder), each job against the same job run
+    alone on the card.  A: four emailEu stand-ins (the matmul sweep);
+    B: lfr10k and three children of it (the hash sweep)."""
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus,
+                                                   run_consensus_batch)
+    from fastconsensus_tpu_torch.models.louvain import select_move_path
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.utils import prng
+
+    seeds = [11, 22, 33, 44]
+    cfg = ConsensusConfig(algorithm="louvain",
+                          n_p=state.get("batch_n_p", 20), tau=0.2,
+                          delta=0.02, closure_tau=0.2,
+                          max_rounds=state.get("batch_rounds", 16))
+    det = get_detector("louvain")
+    check(len(seeds) in bucketer.BATCH_LADDER, "B is not a ladder rung")
+    for name in ("A", "B"):
+        padded = [bucketer.pad_to_bucket(e, n, device=DEVICE)
+                  for e, n in _batch_graphs(name)]
+        slabs = [s for s, _ in padded]
+        keys = {b.key() for _, b in padded}
+        check(len(keys) == 1, f"batch {name}: graphs in buckets {keys}")
+        bucket = padded[0][1]
+        path = select_move_path(slabs[0])
+        rk.reset_launches()
+        reset_peak()
+        sync()
+        t0 = time.perf_counter()
+        res = run_consensus_batch(slabs, det, cfg,
+                                  n_closure=bucket.n_closure, seeds=seeds)
+        sync()
+        wall = time.perf_counter() - t0
+        peak = read_peak()
+        launches = dict(rk.LAUNCHES)
+        shapes = dict(rk.ROW_TOTALS_SHAPES)
+        solo_s, solo_peak = [], []
+        for i, slab in enumerate(slabs):
+            reset_peak()
+            sync()
+            t0 = time.perf_counter()
+            solo = run_consensus(slab, det, cfg,
+                                 key=prng.key(seeds[i], DEVICE),
+                                 n_closure=bucket.n_closure)
+            sync()
+            solo_s.append(time.perf_counter() - t0)
+            solo_peak.append(read_peak())
+            got = res[i]
+            check(got.rounds == solo.rounds and
+                  got.converged == solo.converged,
+                  f"batch {name} job {i}: rounds/convergence differ")
+            check(got.history == solo.history,
+                  f"batch {name} job {i}: history differs from its solo run")
+            check(np.array_equal(np.stack(got.partitions),
+                                 np.stack(solo.partitions)),
+                  f"batch {name} job {i}: partitions differ from its solo "
+                  f"run")
+            check(all(torch.equal(getattr(got.graph, f),
+                                  getattr(solo.graph, f))
+                      for f in ("src", "dst", "weight", "alive")),
+                  f"batch {name} job {i}: final slab differs")
+        rounds = [r.rounds for r in res]
+        alive = [[h["n_alive"] for h in r.history] for r in res]
+        resident = sum(t.numel() * t.element_size() for s in slabs
+                       for t in (s.src, s.dst, s.weight, s.alive))
+        log(f"batch {name}: bucket {bucket.key()} (capacity "
+            f"{bucket.capacity}, L {bucket.n_closure}, {path} sweep), B=4, "
+            f"n_p={cfg.n_p}, seeds {seeds}; batch wall {wall:.2f}s, sum of "
+            f"the four solo walls {sum(solo_s):.2f}s "
+            f"{[round(x, 2) for x in solo_s]}; max_memory_allocated batch "
+            f"{peak}, solo runs {solo_peak} (the four padded slabs, "
+            f"{resident} bytes, resident throughout); splits "
+            f"{len(res.splits)} {res.splits}; rounds {rounds}; converged "
+            f"{[r.converged for r in res]}; peak alive edges "
+            f"{[max(a) if a else 0 for a in alive]}; launches {launches}; "
+            f"every job == its solo run on {DEVICE} (partitions, history, "
+            f"final slab)")
+        if launches["row_totals"]:
+            # a job split off to a solo run may re-derive hybrid rows
+            log(f"batch {name}: row_totals_launches_by_shape="
+                f"{sorted(shapes.items())}")
+            state.setdefault("main_paths", {})[f"batch_{name}"] = dict(
+                launches=launches["row_totals"],
+                by_shape=check_and_time_shapes(shapes, seed=6))
+        if name == "A" and DEVICE == "cuda":
+            # the device's busy share of the batch against the four solo
+            # runs, traced again (batch A is short, so the trace is cheap)
+            b_wall, b_busy, b_n = _device_busy(lambda: run_consensus_batch(
+                slabs, det, cfg, n_closure=bucket.n_closure, seeds=seeds))
+            s_wall, s_busy, s_n = _device_busy(lambda: [run_consensus(
+                slab, det, cfg, key=prng.key(sd, DEVICE),
+                n_closure=bucket.n_closure)
+                for slab, sd in zip(slabs, seeds)])
+            if b_busy is None or s_busy is None:
+                log("batch A: the profiler showed no device time; idle "
+                    "share not measured")
+            else:
+                log(f"batch A under torch.profiler (card only): batch wall "
+                    f"{b_wall:.3f}s, device busy {b_busy:.3f}s, idle "
+                    f"{1 - b_busy / b_wall:.1%}, {b_n} kernels; four solo "
+                    f"runs wall {s_wall:.3f}s, busy {s_busy:.3f}s, idle "
+                    f"{1 - s_busy / s_wall:.1%}, {s_n} kernels")
+
+
 def phase_profile(state):
     """Not a default phase: one cell's consensus run (``--profile-cell``,
     default lfr100k; ``--n-p``, ``--max-rounds`` or ``--leiden-rounds``)
@@ -977,19 +1285,14 @@ def phase_profile(state):
     log(f"profile {cell}: host seconds by layer {layer_s}")
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:            # union of kernel intervals, microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _busy_us(events)
     own = sum(e.time_range.end - e.time_range.start for e in events
               if "row_totals_" in e.name)
     log(f"profile: row_totals kernels' device time {own / 1e6:.3f}s "
         f"({own / max(busy, 1e-9):.2%} of device busy time)")
     log(f"profile: rounds={res.rounds} wall={wall:.2f}s per_round="
         f"{[round(x, 3) for x in per_round]} device_busy={busy / 1e6:.2f}s "
-        f"({busy / 1e6 / wall:.1%} of wall), {len(spans)} kernels")
+        f"({busy / 1e6 / wall:.1%} of wall), {len(events)} kernels")
     table = prof.key_averages().table(sort_by="device_time_total",
                                       row_limit=25)
     (OUT / f"profile_table_{cell}.txt").write_text(table)
@@ -1045,7 +1348,8 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "leiden_lfr10k": phase_leiden_lfr10k,
           "lpm_emaileu": phase_lpm_emaileu,
           "cnm_emaileu": phase_cnm_emaileu,
-          "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume}
+          "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume,
+          "delta": phase_delta, "batch": phase_batch}
 EXTRA_PHASES = {"profile": phase_profile}
 
 

@@ -7,11 +7,14 @@ refresh (policy.stale / policy.stalled), re-derivation of the dense/hybrid
 budgets when they starve (policy.budgets_stale), auto-growth of the slab
 with a deterministic replay of the saturating round, both wedge samplers,
 and checkpoint/resume in the reference's file format
-(``utils/checkpoint.py``).  Rounds run one at a time; the reference's
-fused round blocks are documented bit-identical to that.
+(``utils/checkpoint.py``), and fcdelta's incremental re-consensus from a
+parent run's partitions (``init_labels`` / ``active_mask``).  Rounds run
+one at a time; the reference's fused round blocks are documented
+bit-identical to that.  :func:`run_consensus_batch` runs B same-bucket
+graphs as one member-batched detection stream, each job's result its
+solo run's.
 
-Not ported yet: the device mesh, the detect cache, fcdelta's
-``init_labels``/``active_mask``, the batched multi-graph driver.
+Not ported yet: the device mesh and the detect cache.
 """
 
 from __future__ import annotations
@@ -20,14 +23,19 @@ import dataclasses
 import logging
 import os
 import warnings
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from fastconsensus_tpu_torch import policy
-from fastconsensus_tpu_torch.engine import RoundStats, consensus_round
-from fastconsensus_tpu_torch.graph import GraphSlab, grow_slab, pack_edges
+from fastconsensus_tpu_torch.engine import (RoundStats,
+                                            consensus_batch_round,
+                                            consensus_round, detect_stacked,
+                                            stats_to_host)
+from fastconsensus_tpu_torch.graph import (GraphSlab, check_stackable,
+                                           grow_slab, pack_edges,
+                                           stack_slabs)
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.utils import prng
 from fastconsensus_tpu_torch.utils.env import resolve_device
@@ -35,7 +43,8 @@ from fastconsensus_tpu_torch.utils.env import resolve_device
 _logger = logging.getLogger("fastconsensus_tpu_torch")
 
 __all__ = ["ConsensusConfig", "ConsensusResult", "RoundStats",
-           "run_consensus", "fast_consensus"]
+           "BatchResults", "run_consensus", "run_consensus_batch",
+           "fast_consensus"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +89,10 @@ def _validate_config(config: ConsensusConfig) -> None:
 
 def _history_entry(stats: RoundStats, rounds: int, capacity: int,
                    n_nodes: int, cold: bool) -> dict:
-    """One round's host-side record, as the reference's ``record()``."""
-    lc = [int(v) for v in stats.labels_changed.cpu().numpy().ravel()]
-    mod = [float(v) for v in stats.member_modularity.cpu().numpy().ravel()]
+    """One round's host-side record, as the reference's ``record()``, from
+    stats on the host (:func:`engine.stats_to_host`)."""
+    lc = [int(v) for v in np.asarray(stats.labels_changed).ravel()]
+    mod = [float(v) for v in np.asarray(stats.member_modularity).ravel()]
     n_nodes = max(n_nodes, 1)
     n_front = int(stats.n_frontier)
     return {
@@ -183,20 +193,121 @@ def _resume_from_checkpoint(path: str, slab: GraphSlab,
             bool(extra.get("converged", False)), sampler)
 
 
+class _JobPolicy:
+    """One job's per-round decisions, taken alike by :func:`run_consensus`
+    and :func:`run_consensus_batch`: the next round's mode, endgame key
+    alignment and the re-derivation of starving move-candidate budgets.
+    It holds the job's history (appended by :meth:`observe`) and its
+    policy state."""
+
+    def __init__(self, config: ConsensusConfig, detect: Detector,
+                 warm: bool, cold_start_round: int, history: List[dict]):
+        self.config = config
+        self.warm = warm
+        self.align_ok = getattr(detect, "supports_align", False)
+        self.cold_start_round = cold_start_round
+        self.history = history
+        self.pstate = policy.state_from_history(history)
+        self.budget_noop = None
+
+    def observe(self, entry: dict) -> None:
+        self.history.append(entry)
+        self.pstate = policy.observe(
+            np, self.pstate, np.bool_(entry["cold"]),
+            np.int32(entry["n_unconverged"]), np.int32(entry["n_alive"]))
+
+    def align(self, r: int) -> bool:
+        """Does round ``r`` share one detection key across members?"""
+        if not (self.warm and self.align_ok and self.config.align_frac > 0
+                and self.history) or r == self.cold_start_round:
+            return False
+        return bool(policy.align_now(np, self.config.align_frac,
+                                     self.pstate))
+
+    def mode(self, r: int) -> str:
+        """Round ``r``'s detection: "cold" (from singletons), "refresh"
+        (a stagnation re-detection from singletons) or "warm"."""
+        if not self.warm or r == self.cold_start_round:
+            return "cold"
+        delta = self.config.delta
+        if bool(policy.stale(np, delta, self.pstate)):
+            _logger.warning("warm limit cycle: round %d re-detects cold", r)
+            return "refresh"
+        if bool(policy.stalled(np, delta, self.pstate, self.align(r))):
+            _logger.warning("warm stagnation (unconverged %d -> %d): round "
+                            "%d re-detects cold", int(self.pstate.u2),
+                            int(self.pstate.u1), r)
+            return "refresh"
+        return "warm"
+
+    def regrow_budgets(self, slab: GraphSlab) -> GraphSlab:
+        """Before a round and before the final re-detection: ``slab`` with
+        its dense/hybrid/aggregate budgets re-derived from the live degrees
+        when the last round starved them, else ``slab`` itself."""
+        if not self.config.auto_grow or not self.history:
+            return slab
+        h = self.history[-1]
+        noop = self.budget_noop
+        if noop is not None and h["n_overflow"] <= noop[0] and \
+                h["n_hub_overflow"] <= noop[1] and h["n_alive"] <= noop[2]:
+            return slab
+        if not bool(policy.budgets_stale(
+                np, h["n_overflow"], h["n_hub_overflow"], slab.d_cap,
+                slab.hub_cap, slab.n_nodes, h["n_alive"], slab.agg_cap)):
+            return slab
+        from fastconsensus_tpu_torch.graph import (derive_agg_sizing,
+                                                   derive_dense_sizing,
+                                                   derive_hybrid_sizing)
+
+        deg = slab.degrees().cpu().numpy().astype(np.int64)
+        n_alive = int(slab.num_alive())
+        new_d_cap = derive_dense_sizing(deg, slab.n_nodes)
+        new_hyb, new_hub = derive_hybrid_sizing(deg, slab.n_nodes, n_alive)
+        new_agg = derive_agg_sizing(n_alive) if slab.agg_cap > 0 else 0
+        if (new_d_cap, new_hyb, new_hub, new_agg) == \
+                (slab.d_cap, slab.d_hyb, slab.hub_cap, slab.agg_cap):
+            self.budget_noop = (h["n_overflow"], h["n_hub_overflow"],
+                                (5 * slab.agg_cap) // 4 if slab.agg_cap > 0
+                                else 2 ** 31 - 1)
+            return slab
+        self.budget_noop = None
+        _logger.warning(
+            "move-candidate budgets starved (overflow %d dense / %d hub, "
+            "%d alive): re-deriving d_cap %d -> %d, d_hyb %d -> %d, "
+            "hub_cap %d -> %d, agg_cap %d -> %d", h["n_overflow"],
+            h["n_hub_overflow"], h["n_alive"], slab.d_cap, new_d_cap,
+            slab.d_hyb, new_hyb, slab.hub_cap, new_hub, slab.agg_cap,
+            new_agg)
+        return dataclasses.replace(slab, d_cap=new_d_cap, d_hyb=new_hyb,
+                                   hub_cap=new_hub, agg_cap=new_agg)
+
+
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   key: Optional[torch.Tensor] = None,
                   checkpoint_path: Optional[str] = None,
                   checkpoint_every: int = 1,
                   resume: bool = False,
                   on_round=None,
-                  n_closure: Optional[int] = None) -> ConsensusResult:
+                  n_closure: Optional[int] = None,
+                  init_labels=None,
+                  active_mask=None) -> ConsensusResult:
     """Iterate rounds to delta-convergence (or ``max_rounds``), then run the
     final re-detection.  Runs on the slab's device.
 
     ``checkpoint_path`` persists the state every ``checkpoint_every``
     rounds and on convergence; with ``resume`` an existing checkpoint
     restarts the loop where it stopped (its key, slab, history and labels
-    replace the caller's)."""
+    replace the caller's).
+
+    ``init_labels`` / ``active_mask`` (fcdelta, ``serve/delta.py``): seed
+    the run from a prior run's final partitions (``init_labels``
+    ``[n_p, n_nodes]``) instead of singletons, so round 0 runs the
+    capped-sweep warm detector, and optionally freeze the vertices outside
+    ``active_mask`` (bool[n_nodes]) at their ``init_labels`` through every
+    round and the final re-detection (a clamp on the host).  Stagnation
+    refreshes still re-detect cold.  Requires a warm-capable detector
+    (``warm_start`` on and ``supports_init``); incompatible with
+    checkpoint/resume."""
     dev = slab.device
     if key is None:
         key = prng.key(config.seed, dev)
@@ -210,7 +321,31 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         else config.closure_sampler
     n_p = config.n_p
     warm = config.warm_start and getattr(detect, "supports_init", False)
-    align_ok = getattr(detect, "supports_align", False)
+    if active_mask is not None and init_labels is None:
+        raise ValueError("active_mask requires init_labels (the frozen "
+                         "vertices' labels come from the parent run)")
+    if init_labels is not None:
+        if not warm:
+            raise ValueError(
+                "init_labels requires warm_start=True and a detector "
+                "with supports_init (the warm ensemble IS the reuse)")
+        if checkpoint_path is not None or resume:
+            raise ValueError("init_labels is incompatible with "
+                             "checkpoint/resume (two competing notions "
+                             "of 'where the run starts')")
+        init_labels = np.asarray(init_labels, np.int32)
+        if init_labels.shape != (config.n_p, slab.n_nodes):
+            raise ValueError(
+                f"init_labels shape {init_labels.shape} != "
+                f"{(config.n_p, slab.n_nodes)} (n_p, n_nodes)")
+    active_np: Optional[np.ndarray] = None
+    active = None
+    if active_mask is not None:
+        active_np = np.asarray(active_mask, bool)
+        if active_np.shape != (slab.n_nodes,):
+            raise ValueError(f"active_mask shape {active_np.shape} != "
+                             f"({slab.n_nodes},)")
+        active = torch.as_tensor(active_np, device=dev)
     detect_warm = (getattr(detect, "warm_variant", None) or detect) \
         if warm else detect
     detect_refresh = getattr(detect, "refresh_variant", None) or detect
@@ -227,87 +362,31 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         resumed_converged = False
         # weights <- 1.0 at loop start (fc:135-136)
         slab = slab.with_weights(torch.where(slab.alive, 1.0, 0.0))
+    if init_labels is not None:
+        # the run begins where the parent ended, as a labels-bearing
+        # resume does: round 0 runs the warm detector
+        cur_labels = torch.as_tensor(init_labels.astype(np.int64),
+                                     device=dev)
 
     history: List[dict] = list(prior_history)
-    pstate = policy.state_from_history(history)
-    budget_noop = None
     converged = resumed_converged
     rounds = start_round
     end_round = start_round if resumed_converged else config.max_rounds
     # the round that starts from singletons runs the full-sweep detector:
     # round 0, or the first resumed round of a checkpoint without labels
     cold_start_round = start_round if cur_labels is None else -1
+    job = _JobPolicy(config, detect, warm, cold_start_round, history)
     sing = torch.arange(slab.n_nodes, device=dev).expand(n_p, slab.n_nodes)
     if warm and cur_labels is None:
         cur_labels = sing
     prev_round_labels = sing
 
-    def round_mode(r0: int) -> str:
-        if not warm or r0 == cold_start_round:
-            return "cold"
-        if bool(policy.stale(np, config.delta, pstate)):
-            _logger.warning("warm limit cycle: round %d re-detects cold", r0)
-            return "refresh"
-        if bool(policy.stalled(np, config.delta, pstate, align_now(r0))):
-            _logger.warning("warm stagnation (unconverged %d -> %d): round "
-                            "%d re-detects cold", int(pstate.u2),
-                            int(pstate.u1), r0)
-            return "refresh"
-        return "warm"
-
-    def align_now(r0: int) -> bool:
-        if not (warm and align_ok and config.align_frac > 0 and history):
-            return False
-        if r0 == cold_start_round:
-            return False
-        return bool(policy.align_now(np, config.align_frac, pstate))
-
-    def maybe_regrow_budgets() -> None:
-        nonlocal slab, budget_noop
-        if not config.auto_grow or not history:
-            return
-        h = history[-1]
-        if budget_noop is not None and \
-                h["n_overflow"] <= budget_noop[0] and \
-                h["n_hub_overflow"] <= budget_noop[1] and \
-                h["n_alive"] <= budget_noop[2]:
-            return
-        if not bool(policy.budgets_stale(
-                np, h["n_overflow"], h["n_hub_overflow"], slab.d_cap,
-                slab.hub_cap, slab.n_nodes, h["n_alive"], slab.agg_cap)):
-            return
-        from fastconsensus_tpu_torch.graph import (derive_agg_sizing,
-                                                   derive_dense_sizing,
-                                                   derive_hybrid_sizing)
-
-        deg = slab.degrees().cpu().numpy().astype(np.int64)
-        n_alive = int(slab.num_alive())
-        new_d_cap = derive_dense_sizing(deg, slab.n_nodes)
-        new_hyb, new_hub = derive_hybrid_sizing(deg, slab.n_nodes, n_alive)
-        new_agg = derive_agg_sizing(n_alive) if slab.agg_cap > 0 else 0
-        if (new_d_cap, new_hyb, new_hub, new_agg) == \
-                (slab.d_cap, slab.d_hyb, slab.hub_cap, slab.agg_cap):
-            budget_noop = (h["n_overflow"], h["n_hub_overflow"],
-                           (5 * slab.agg_cap) // 4 if slab.agg_cap > 0
-                           else 2 ** 31 - 1)
-            return
-        budget_noop = None
-        _logger.warning(
-            "move-candidate budgets starved (overflow %d dense / %d hub, "
-            "%d alive): re-deriving d_cap %d -> %d, d_hyb %d -> %d, "
-            "hub_cap %d -> %d, agg_cap %d -> %d", h["n_overflow"],
-            h["n_hub_overflow"], h["n_alive"], slab.d_cap, new_d_cap,
-            slab.d_hyb, new_hyb, slab.hub_cap, new_hub, slab.agg_cap,
-            new_agg)
-        slab = dataclasses.replace(slab, d_cap=new_d_cap, d_hyb=new_hyb,
-                                   hub_cap=new_hub, agg_cap=new_agg)
-
     r = start_round
     while r < end_round:
-        maybe_regrow_budgets()
+        slab = job.regrow_budgets(slab)
         pre_slab = slab
         k = prng.stream(key, prng.STREAM_ROUND, r)
-        mode = round_mode(r)
+        mode = job.mode(r)
         is_cold = mode != "warm"
         round_detect = {"cold": detect, "refresh": detect_refresh,
                         "warm": detect_warm}[mode]
@@ -315,14 +394,15 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
             slab_new, new_labels, stats = consensus_round(
                 slab, k, round_detect, n_p, config.tau, config.delta,
                 n_closure, init_labels=sing if is_cold else cur_labels,
-                align=align_now(r) and not is_cold,
+                align=job.align(r) and not is_cold,
                 closure_tau=config.closure_tau, prev_labels=cur_labels,
-                sampler=sampler)
+                sampler=sampler, active=active)
         else:
             slab_new, new_labels, stats = consensus_round(
                 slab, k, round_detect, n_p, config.tau, config.delta,
                 n_closure, closure_tau=config.closure_tau,
                 prev_labels=prev_round_labels, sampler=sampler)
+        stats = stats_to_host([stats])[0]
         dropped = int(stats.n_dropped)
         if config.auto_grow and dropped > 0:
             # grow from the pre-round state and replay the round: same key,
@@ -343,10 +423,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         rounds += 1
         entry = _history_entry(stats, rounds, slab.capacity, slab.n_nodes,
                                is_cold)
-        history.append(entry)
-        pstate = policy.observe(np, pstate, np.bool_(entry["cold"]),
-                                np.int32(entry["n_unconverged"]),
-                                np.int32(entry["n_alive"]))
+        job.observe(entry)
         if on_round is not None:
             on_round(entry)
         converged = bool(stats.converged)
@@ -370,7 +447,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         if converged:
             break
 
-    maybe_regrow_budgets()
+    slab = job.regrow_budgets(slab)
     final_keys = prng.partition_keys(
         prng.stream(key, prng.STREAM_FINAL), n_p)
     # the warm variant only when the seed labels come from real detection
@@ -380,9 +457,183 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     final_labels = final_detect(slab, final_keys,
                                 cur_labels if warm else None)
     all_labels = final_labels.cpu().numpy().astype(np.int32)
-    return ConsensusResult(partitions=[all_labels[i] for i in range(n_p)],
-                           graph=slab, rounds=rounds, converged=converged,
-                           history=history)
+    partitions = [all_labels[i] for i in range(n_p)]
+    if active_np is not None:
+        # frozen vertices keep the parent's labels through the final
+        # re-detection too
+        partitions = [np.where(active_np, p, init_labels[i])
+                      for i, p in enumerate(partitions)]
+    return ConsensusResult(partitions=partitions, graph=slab, rounds=rounds,
+                           converged=converged, history=history)
+
+
+class BatchResults(list):
+    """The :class:`ConsensusResult` of each job of a
+    :func:`run_consensus_batch` call, in order.  ``splits`` maps each job
+    that split off the batch and re-ran alone to the reason (empty when
+    every job stayed batched)."""
+
+    splits: Dict[int, str]
+
+
+def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
+                        config: ConsensusConfig, n_closure: int,
+                        seeds=None, keys=None) -> BatchResults:
+    """Run B independent same-bucket consensus jobs as one batched round
+    stream, the batch counterpart of :func:`run_consensus` (the serving
+    tier's coalescing path).  Runs on the slabs' device.
+
+    Each batched round detects the members of all the jobs it runs as one
+    member-batched stream (``engine.consensus_batch_round``; detectors
+    without ``supports_stack``, the host C++ ones, run once per job) and
+    reads back one stack of stats.  **Bit-parity contract**: every job's
+    partitions, rounds, convergence and history are those of running it
+    alone through :func:`run_consensus` with its own key.  Round keys
+    derive from ``(key_b, round_b)`` as :func:`run_consensus`'s, and each
+    job's round decisions are the solo driver's own (``_JobPolicy``):
+    round 0 is uniformly cold; stagnation refreshes run batched through
+    the cold mode with the refresh variant, masked to the jobs whose
+    policy fired; warm rounds run batched; converged jobs drop out.  A job
+    whose round drops edges (under ``auto_grow``) or whose budgets are
+    re-derived (a change of its statics) is **split off**: its batched
+    progress is discarded and it re-runs alone through
+    :func:`run_consensus`.  The final re-detection is batched, with
+    per-job ``STREAM_FINAL`` keys; it runs the warm variant once a round
+    has run, the solo driver's rule (the reference's batch driver runs it
+    under warm start even at ``max_rounds=0``, where its solo driver does
+    not), so that every job equals its solo run.
+
+    ``n_closure`` is required: the bucket-canonical L
+    (``serve/bucketer.Bucket.n_closure``) shared by the batch.  ``seeds``
+    gives job b the run key ``prng.key(seeds[b])`` (default
+    ``config.seed`` for every job); ``keys`` passes run keys instead.  No
+    checkpoint/resume, no fcdelta masks.  The split count is logged on the
+    ``fastconsensus_tpu_torch`` logger; ``BatchResults.splits`` maps each
+    split job to the reason.
+    """
+    B = len(slabs)
+    if B < 1:
+        raise ValueError("run_consensus_batch needs at least one slab")
+    if keys is not None and seeds is not None:
+        raise ValueError("pass seeds or keys, not both")
+    check_stackable(slabs)
+    dev = slabs[0].device
+    if keys is None:
+        seeds = list(seeds) if seeds is not None else [config.seed] * B
+        if len(seeds) != B:
+            raise ValueError(f"{len(seeds)} seeds for {B} slabs")
+        keys = [prng.key(int(s), dev) for s in seeds]
+    keys = [k.to(dev) for k in keys]
+    if len(keys) != B:
+        raise ValueError(f"{len(keys)} keys for {B} slabs")
+    _validate_config(config)
+    sampler = "csr" if config.closure_sampler == "auto" \
+        else config.closure_sampler
+    n_closure = int(n_closure)
+    warm = config.warm_start and getattr(detect, "supports_init", False)
+    detect_warm = (getattr(detect, "warm_variant", None) or detect) \
+        if warm else detect
+    detect_refresh = getattr(detect, "refresh_variant", None) or detect
+
+    n_nodes, n_p = slabs[0].n_nodes, config.n_p
+    # weights <- 1.0 at loop start, per job (run_consensus parity)
+    cur = [s.with_weights(torch.where(s.alive, 1.0, 0.0)) for s in slabs]
+    sing = torch.arange(n_nodes, device=dev).expand(n_p, n_nodes)
+    # the singleton baseline is every job's round-0 churn baseline, also
+    # without warm start (run_consensus's prev_round_labels)
+    labels = [sing] * B
+    jobs = [_JobPolicy(config, detect, warm, 0, []) for _ in range(B)]
+    conv = np.zeros(B, bool)
+    rounds = np.zeros(B, np.int64)
+    solo = np.zeros(B, bool)
+    results = BatchResults([None] * B)
+    results.splits = {}
+
+    def split_off(i: int, why: str) -> None:
+        solo[i] = True
+        results.splits[i] = why
+        _logger.info("batch job %d split off to solo tail (%s)", i, why)
+
+    def active() -> np.ndarray:
+        return ~conv & ~solo & (rounds < config.max_rounds)
+
+    def run_round(mode: str, det: Detector, only=None) -> None:
+        mask = active() if only is None else active() & only
+        idx = [int(i) for i in np.flatnonzero(mask)]
+        if not idx:
+            return
+        init = None
+        if mode == "warm":
+            init = [labels[i] for i in idx]
+        elif mode == "cold":
+            init = [sing] * len(idx)
+        out = consensus_batch_round(
+            [cur[i] for i in idx],
+            [prng.stream(keys[i], prng.STREAM_ROUND, int(rounds[i]))
+             for i in idx],
+            det, n_p, config.tau, config.delta, n_closure, init,
+            [mode == "warm" and jobs[i].align(int(rounds[i])) for i in idx],
+            [labels[i] for i in idx], closure_tau=config.closure_tau,
+            sampler=sampler)
+        # one readback of the whole batch's stats
+        host = stats_to_host([st for _, _, st in out])
+        for i, (slab_new, lab, _), st in zip(idx, out, host):
+            if config.auto_grow and int(st.n_dropped) > 0:
+                # run_consensus would grow the slab and replay
+                split_off(i, f"slab saturated at round {rounds[i]}")
+                continue
+            rounds[i] += 1
+            jobs[i].observe(_history_entry(st, int(rounds[i]),
+                                           slab_new.capacity, n_nodes,
+                                           mode != "warm"))
+            conv[i] = bool(st.converged)
+            cur[i], labels[i] = slab_new, lab
+            # run_consensus re-derives starved budgets before its next
+            # round and its final re-detection: new statics leave the
+            # bucket
+            if jobs[i].regrow_budgets(slab_new) is not slab_new:
+                split_off(i, f"budget re-derivation after round "
+                             f"{rounds[i]}")
+
+    if warm:
+        # absolute round 0: uniformly cold (singleton-init full sweeps)
+        run_round("cold", detect)
+        while active().any():
+            refresh = np.array([bool(a) and
+                                jobs[i].mode(int(rounds[i])) == "refresh"
+                                for i, a in enumerate(active())])
+            if refresh.any():
+                run_round("cold", detect_refresh, only=refresh)
+                continue
+            run_round("warm", detect_warm)
+    else:
+        while active().any():
+            run_round("scratch", detect)
+
+    batched = [i for i in range(B) if not solo[i]]
+    if batched:
+        final_keys = torch.cat([prng.partition_keys(
+            prng.stream(keys[i], prng.STREAM_FINAL), n_p) for i in batched])
+        # run_consensus's rule: the warm variant once a round has run
+        final_warm = warm and config.max_rounds > 0
+        final = detect_stacked(
+            detect_warm if final_warm else detect,
+            stack_slabs([cur[i] for i in batched]), final_keys,
+            torch.cat([labels[i] for i in batched]) if warm else None)
+        all_labels = final.cpu().numpy().astype(np.int32)
+        for j, i in enumerate(batched):
+            results[i] = ConsensusResult(
+                partitions=[all_labels[j * n_p + p] for p in range(n_p)],
+                graph=cur[i], rounds=int(rounds[i]),
+                converged=bool(conv[i]), history=jobs[i].history)
+    if results.splits:
+        _logger.info("batch of %d: %d job(s) split off to solo runs: %s",
+                     B, len(results.splits), sorted(results.splits))
+    for i in sorted(results.splits):
+        # the parity reference itself: the job alone with its own key
+        results[i] = run_consensus(slabs[i], detect, config, key=keys[i],
+                                   n_closure=n_closure)
+    return results
 
 
 def fast_consensus(edges: np.ndarray, n_nodes: int,

@@ -8,19 +8,26 @@ Counterpart of ``fastconsensus_tpu/engine.py``.  A round (reference
     -> triadic closure (skipped if converged) -> singleton repair
     -> convergence check
 
-PyTorch runs eagerly, so the reference's jitted executables, fused round
-blocks (documented bit-identical to per-round execution) and the
-detect-chunk disk cache have no counterpart here; ``lax.cond`` is a host
-branch.
+PyTorch runs eagerly, so the reference's jitted executables have no
+counterpart here and ``lax.cond`` is a host branch.  Its batched round
+block (``consensus_batch_block``) is :func:`consensus_batch_round` without
+the on-device loop: one round of B same-bucket graphs, one detection
+stream over all of them, the tail per graph.
+
+Not ported: the fused solo round block ``consensus_rounds_block``
+(documented bit-identical to per-round execution, so it has no result of
+its own; what it saves is launches and readbacks, CUDA-graph work) and
+the detect-chunk disk cache.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from fastconsensus_tpu_torch.graph import GraphSlab, agg_compaction_active
+from fastconsensus_tpu_torch.graph import (GraphSlab, agg_compaction_active,
+                                           stack_slabs, unstack_slab)
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.obs import quality as obs_quality
 from fastconsensus_tpu_torch.ops import consensus_ops as cops
@@ -119,23 +126,102 @@ def _maybe_align_keys(keys: torch.Tensor, align: bool) -> torch.Tensor:
     return keys[:1].expand_as(keys).clone()
 
 
+def round_keys(key: torch.Tensor, n_p: int, align: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A round's member detection keys ``[n_p, 2]`` and its closure key,
+    as the reference derives them: ``split(key)`` into detection and
+    closure, then one ``fold_in`` per member."""
+    ks = prng.split(key, 2)
+    return _maybe_align_keys(prng.partition_keys(ks[0], n_p), align), ks[1]
+
+
 def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
                     n_p: int, tau: float, delta: float, n_closure: int,
                     init_labels: Optional[torch.Tensor] = None,
                     align: bool = False,
                     closure_tau: Optional[float] = None,
                     prev_labels: Optional[torch.Tensor] = None,
-                    sampler: str = "csr"
+                    sampler: str = "csr",
+                    active: Optional[torch.Tensor] = None
                     ) -> Tuple[GraphSlab, torch.Tensor, RoundStats]:
-    """One full round: ``(next_slab, labels[n_p, N], stats)``.  Keys derive
-    as in the reference: ``split(key)`` into detection and closure, then
-    one ``fold_in`` per member."""
-    ks = prng.split(key, 2)
-    k_detect, k_closure = ks[0], ks[1]
-    keys = _maybe_align_keys(prng.partition_keys(k_detect, n_p), align)
+    """One full round: ``(next_slab, labels[n_p, N], stats)``.
+
+    ``active`` (bool[N], fcdelta) freezes the vertices outside the mask:
+    after detection their labels are set back to the round-entering
+    ``prev_labels``, which it therefore requires.  ``None`` adds no op."""
+    if active is not None and prev_labels is None:
+        raise ValueError("active mask requires prev_labels (the freeze "
+                         "source for masked-out vertices)")
+    keys, k_closure = round_keys(key, n_p, align)
     labels = detect(slab, keys, init_labels)
+    if active is not None:
+        labels = torch.where(active[None, :], labels, prev_labels)
     slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau, delta,
                                  n_closure, closure_tau=closure_tau,
                                  prev_labels=prev_labels, sampler=sampler)
     return slab, labels, stats
 
+
+def detect_stacked(detect: Detector, stacked: GraphSlab, keys: torch.Tensor,
+                   init_labels: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Detection of the B graphs of a :func:`graph.stack_slabs` result,
+    ``keys[B * n_p, 2]`` (graph b's members at rows ``b * n_p ...``): one
+    call, one stream of members, for a detector that takes a stacked slab
+    (``supports_stack``); the host C++ detectors (CNM, Infomap) loop over
+    members anyway and run once per graph."""
+    if getattr(detect, "supports_stack", False):
+        return detect(stacked, keys, init_labels)
+    n_graphs = stacked.batch[0]
+    n_p = keys.shape[0] // n_graphs
+    return torch.cat([
+        detect(unstack_slab(stacked, b), keys[b * n_p:(b + 1) * n_p],
+               None if init_labels is None
+               else init_labels[b * n_p:(b + 1) * n_p])
+        for b in range(n_graphs)], dim=0)
+
+
+def consensus_batch_round(slabs: List[GraphSlab], keys: List[torch.Tensor],
+                          detect: Detector, n_p: int, tau: float,
+                          delta: float, n_closure: int,
+                          init_labels: Optional[List[torch.Tensor]],
+                          align: List[bool],
+                          prev_labels: List[torch.Tensor],
+                          closure_tau: Optional[float] = None,
+                          sampler: str = "csr"
+                          ) -> List[Tuple[GraphSlab, torch.Tensor,
+                                          RoundStats]]:
+    """One round of B same-bucket graphs: graph b's
+    :func:`consensus_round` with round key ``keys[b]``, init
+    ``init_labels[b]`` (None: no init for any) and ``align[b]``, its
+    members all detected in one stream (:func:`detect_stacked`) and the
+    tail run per graph.  Each graph's result is its solo round's."""
+    derived = [round_keys(k, n_p, a) for k, a in zip(keys, align)]
+    labels = detect_stacked(
+        detect, stack_slabs(slabs), torch.cat([d for d, _ in derived], dim=0),
+        None if init_labels is None else torch.cat(init_labels, dim=0))
+    out = []
+    for b, (slab, (_, k_closure)) in enumerate(zip(slabs, derived)):
+        lab = labels[b * n_p:(b + 1) * n_p]
+        slab, stats = consensus_tail(slab, lab, k_closure, n_p, tau, delta,
+                                     n_closure, closure_tau=closure_tau,
+                                     prev_labels=prev_labels[b],
+                                     sampler=sampler)
+        out.append((slab, lab, stats))
+    return out
+
+
+def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
+    """Every field of every round's stats in one device-to-host copy, as
+    numpy (float64 holds each int and float32 field exactly)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for st in stats for t in st]).cpu().numpy()
+    out, at = [], 0
+    for st in stats:
+        fields = []
+        for t in st:
+            n = t.numel()
+            fields.append(flat[at:at + n].reshape(t.shape))
+            at += n
+        out.append(RoundStats(*fields))
+    return out

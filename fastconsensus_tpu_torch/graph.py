@@ -253,6 +253,50 @@ def pack_edges(edges: np.ndarray, n_nodes: int,
                      agg_cap=derive_agg_sizing(n_edges))
 
 
+def _statics(slab: GraphSlab) -> Tuple[int, ...]:
+    return (slab.n_nodes, slab.capacity, slab.d_cap, slab.cap_hint,
+            slab.d_hyb, slab.hub_cap, slab.agg_cap)
+
+
+def check_stackable(slabs) -> None:
+    """Raise unless every slab has the first one's static fields (what
+    :func:`stack_slabs` requires), with the reference's message."""
+    if not slabs:
+        raise ValueError("stack_slabs needs at least one slab")
+    base = _statics(slabs[0])
+    for i, s in enumerate(slabs[1:], start=1):
+        if _statics(s) != base:
+            raise ValueError(
+                f"cannot batch slabs with differing static shapes: slab 0 "
+                f"has {base}, slab {i} has {_statics(s)} "
+                f"(n_nodes, capacity, d_cap, cap_hint, d_hyb, hub_cap, "
+                f"agg_cap); pad through one serve/bucketer bucket first")
+
+
+def stack_slabs(slabs) -> GraphSlab:
+    """Stack B same-shaped slabs along a new leading graph axis: a slab
+    whose fields are ``[B, capacity]``.  Every static field (n_nodes,
+    capacity and the sizing) must be identical across the batch, as the
+    reference requires (``serve/bucketer.py`` canonicalizes them).
+
+    Detection reads such a slab as graph-stacked: with ``K = B * per``
+    keys, member ``k`` runs on graph ``k // per`` (``models/base.
+    ensemble``)."""
+    check_stackable(slabs)
+    return dataclasses.replace(
+        slabs[0], src=torch.stack([s.src for s in slabs]),
+        dst=torch.stack([s.dst for s in slabs]),
+        weight=torch.stack([s.weight for s in slabs]),
+        alive=torch.stack([s.alive for s in slabs]))
+
+
+def unstack_slab(stacked: GraphSlab, b: int) -> GraphSlab:
+    """Graph ``b`` of a :func:`stack_slabs` result (views, no copy)."""
+    return dataclasses.replace(
+        stacked, src=stacked.src[b], dst=stacked.dst[b],
+        weight=stacked.weight[b], alive=stacked.alive[b])
+
+
 def grow_slab(slab: GraphSlab, new_capacity: int) -> GraphSlab:
     """Extend capacity with dead tail slots (result-preserving, as in the
     reference: insertion visits existing dead slots before the tail)."""

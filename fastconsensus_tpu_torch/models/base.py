@@ -6,6 +6,17 @@ The reference vmaps a one-partition kernel over the ensemble axis; here
 the members are an explicit leading dimension, run in chunks bounded by a
 memory budget (``sizing.members_per_call``).  Detectors are per-key independent (member i's labels
 depend only on ``(slab, keys[i])``), so the chunking never changes results.
+
+A detector built by :func:`ensemble` also takes a graph-stacked slab
+(``graph.stack_slabs``: fields ``[G, capacity]``) with ``K = G * per``
+keys: member ``k`` runs on graph ``k // per``, and all K members form one
+detection stream (the cross-graph batch, ``consensus.run_consensus_batch``).
+Such detectors carry ``supports_stack``; the host C++ detectors do not,
+and the batch path calls them once per graph.  The graphs' prepared state
+reaches their members by view where the sweep's ops allow it (Louvain's
+dense matrices on the matmul sweep); what the ops index per member (edge
+slots, strengths, rows) is copied per member and counted in the chunk's
+memory budget.
 """
 
 from __future__ import annotations
@@ -24,6 +35,20 @@ class Detector(Protocol):
                  ) -> torch.Tensor: ...
 
 
+def row_bytes(*xs) -> int:
+    """Bytes of one leading-axis row of each tensor in ``xs`` (a tensor,
+    a NamedTuple of tensors, or None): what a copy per member costs."""
+    total = 0
+    for x in xs:
+        if x is None:
+            continue
+        if isinstance(x, torch.Tensor):
+            total += x[0].numel() * x.element_size() if x.dim() else 0
+        else:
+            total += row_bytes(*x)
+    return total
+
+
 def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
              member_bytes: Optional[Callable[[GraphSlab], int]] = None
              ) -> Detector:
@@ -33,18 +58,38 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
     (adjacency rows, strengths); ``run(prep, keys[M, 2], init[M, N] or
     None)`` runs M members; ``member_bytes(slab)`` bounds one member's
     temporaries (default: a Louvain sweep's).  The lifted detector takes
-    ``init_labels`` to warm-start member i from ``init_labels[i]``."""
+    ``init_labels`` to warm-start member i from ``init_labels[i]``.
+
+    On a graph-stacked slab ``prepare`` runs once over the G graphs (its
+    state keeps their leading axis: each graph's own strengths, 2m and
+    rows) and ``prep.members_of(graph_of_member)`` hands each chunk of
+    members its graph's state; the bytes that copies per member
+    (``prep.member_copy_bytes()``) count against the chunk's budget."""
 
     def detect(slab: GraphSlab, keys: torch.Tensor,
                init_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        n_p = keys.shape[0]
-        chunk = members_per_call(slab, n_p, member_bytes)
+        n_keys = keys.shape[0]
         prep = prepare(slab)
+        graph_of = None
+        copied = 0
+        if slab.batch:
+            n_graphs = slab.batch[0]
+            if len(slab.batch) != 1 or n_keys % n_graphs:
+                raise ValueError(
+                    f"{n_keys} keys for a slab stacked {tuple(slab.batch)}: "
+                    f"expected one axis of graphs and a multiple of it")
+            graph_of = torch.arange(n_graphs, device=slab.device
+                                    ).repeat_interleave(n_keys // n_graphs)
+            copied = prep.member_copy_bytes()
+        chunk = members_per_call(slab, n_keys, member_bytes, copied)
         parts = []
-        for s in range(0, n_p, chunk):
+        for s in range(0, n_keys, chunk):
             init = None if init_labels is None else init_labels[s:s + chunk]
-            parts.append(run(prep, keys[s:s + chunk], init))
+            p = prep if graph_of is None else \
+                prep.members_of(graph_of[s:s + chunk])
+            parts.append(run(p, keys[s:s + chunk], init))
         return torch.cat(parts, dim=0)
 
     detect.supports_init = True
+    detect.supports_stack = True
     return detect

@@ -38,10 +38,11 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from fastconsensus_tpu_torch.graph import GraphSlab
-from fastconsensus_tpu_torch.models.base import Detector, ensemble
+from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
 from fastconsensus_tpu_torch.ops import dense_adj as da
 from fastconsensus_tpu_torch.ops import row_kernels
 from fastconsensus_tpu_torch.ops import segment as seg
@@ -121,22 +122,41 @@ def _dense_weights(slab: GraphSlab) -> torch.Tensor:
                         wd[ok]).view(b, n, n)
 
 
+def _in_weights(W: torch.Tensor, own: torch.Tensor,
+                w_rows: Optional[np.ndarray]) -> torch.Tensor:
+    """``W @ own`` per member.  ``w_rows`` (host ints, one per member, in
+    runs) names the row of ``W`` each member reads: the members of one
+    graph share its matrix, one product per run of members, without a
+    copy of it per member.  ``None``: ``W``'s rows are the members' (or
+    one row shared by all)."""
+    if w_rows is None:
+        return torch.matmul(W, own)
+    s = torch.empty_like(own)
+    starts = np.flatnonzero(np.diff(w_rows, prepend=-1))
+    for lo, hi in zip(starts, list(starts[1:]) + [len(w_rows)]):
+        g = int(w_rows[lo])
+        torch.matmul(W[g:g + 1], own[lo:hi], out=s[lo:hi])
+    return s
+
+
 def _move_step_matmul(W: torch.Tensor, labels: torch.Tensor,
                       key: torch.Tensor, m2: torch.Tensor,
                       strength: torch.Tensor, gamma: float = 1.0,
-                      theta: float = 0.0
+                      theta: float = 0.0,
+                      w_rows: Optional[np.ndarray] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep via ``S = W @ onehot(labels)``: k_i_in(C) for every
     community at once.  Candidates are communities with positive in-weight
     plus the node's own; the column index is the community id, so argmax's
     first maximum is the smallest tied label, as in the reference.
-    ``W`` is ``[B, N, N]``, ``m2`` ``[B]``, ``strength`` ``[B, N]``."""
+    ``W`` is ``[B, N, N]`` (member k reads row ``w_rows[k]`` when given),
+    ``m2`` ``[M]``, ``strength`` ``[M, N]``."""
     n = W.shape[-1]
     dev = W.device
     sigma = _sigma_tot(strength, labels, n)
     ids = torch.arange(n, device=dev)
     own = labels[:, :, None] == ids
-    s = torch.matmul(W, own.to(torch.float32))
+    s = _in_weights(W, own.to(torch.float32), w_rows)
     k_i = strength[:, :, None]
     m2c = m2.view(-1, 1, 1)
     gain = s - gamma * k_i * (sigma[:, None, :] -
@@ -485,7 +505,9 @@ def _take(x, idx: torch.Tensor):
 class Prepared:
     """Label-independent per-slab state of a local-move call.  For a
     member-batched slab every member has its own rows, strengths and 2m;
-    ``take`` selects the members still sweeping."""
+    ``take`` selects the members still sweeping.  For a graph-stacked slab
+    (``graph.stack_slabs``) the state is per graph and :meth:`members_of`
+    hands it to the members."""
 
     def __init__(self, slab: GraphSlab, gamma: float = 1.0,
                  theta: float = 0.0):
@@ -498,6 +520,7 @@ class Prepared:
         self.m2 = slab.total_weight().clamp(min=1e-9).reshape(-1)
         self.strength = slab.strengths().reshape(-1, n)
         self.W = self.adj = self.hyb = self.fused = None
+        self.w_rows: Optional[np.ndarray] = None
         self.coin_rows = None
         self.n_buckets = 0
         if self.path == "matmul":
@@ -536,19 +559,41 @@ class Prepared:
         out = copy.copy(self)
         out.slab = self.slab.take(idx)
         out.m2, out.strength = self.m2[idx], self.strength[idx]
-        out.W, out.adj, out.hyb = (_take(x, idx) for x in
-                                   (self.W, self.adj, self.hyb))
+        if self.w_rows is None:
+            out.W = _take(self.W, idx)
+        else:
+            out.w_rows = self.w_rows[idx.cpu().numpy()]
+        out.adj, out.hyb = _take(self.adj, idx), _take(self.hyb, idx)
         out.coin_rows = _take(self.coin_rows, idx)
         if self.fused is not None:
             out.fused = self.fused.take(idx)
         return out
+
+    def members_of(self, graph_of: torch.Tensor) -> "Prepared":
+        """Graph-stacked state handed to members ``graph_of[k]`` (a run
+        per graph).  The dense matrices ``W`` stay one per graph, read by
+        each member through ``w_rows``; the rest is copied per member
+        (:meth:`member_copy_bytes`), since the sweeps index it by member."""
+        shared = copy.copy(self)
+        if self.W is not None:
+            shared.w_rows = np.arange(self.W.shape[0])
+        return shared.take(graph_of)
+
+    def member_copy_bytes(self) -> int:
+        """Bytes :meth:`members_of` copies for each member."""
+        return row_bytes(self.slab.src, self.slab.dst, self.slab.weight,
+                         self.slab.alive, self.m2, self.strength, self.adj,
+                         self.hyb, self.coin_rows) + \
+            (0 if self.fused is None else row_bytes(
+                self.fused.nbr, self.fused.valid, self.fused.w,
+                self.fused.scal_base))
 
     def step(self, labels: torch.Tensor, key: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         g, th = self.gamma, self.theta
         if self.path == "matmul":
             return _move_step_matmul(self.W, labels, key, self.m2,
-                                     self.strength, g, th)
+                                     self.strength, g, th, self.w_rows)
         if self.fused is not None:
             sigma = _sigma_tot(self.strength, labels, self.slab.n_nodes)
             return self.fused.step(labels, sigma, key)

@@ -17,12 +17,13 @@ ties alike.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
 
 from fastconsensus_tpu_torch.graph import GraphSlab
-from fastconsensus_tpu_torch.models.base import Detector, ensemble
+from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
 from fastconsensus_tpu_torch.ops import dense_adj as da
 from fastconsensus_tpu_torch.ops import segment as seg
 from fastconsensus_tpu_torch.utils import prng
@@ -66,12 +67,31 @@ def _vote_step_dense(adj: da.DenseAdj, labels: torch.Tensor,
 
 
 class Prepared:
-    """The slab and, when it carries a row width, its dense rows."""
+    """The slab and, when it carries a row width, its dense rows; for a
+    member-batched slab both carry the member dimension and ``take``
+    selects the members still voting."""
 
     def __init__(self, slab: GraphSlab):
         self.slab = slab
         self.adj = da.build_dense_adjacency(slab) if slab.d_cap > 0 \
             else None
+
+    def take(self, idx: torch.Tensor) -> "Prepared":
+        if not self.slab.batch:
+            return self
+        out = copy.copy(self)
+        out.slab = self.slab.take(idx)
+        if self.adj is not None:
+            out.adj = da.DenseAdj(*(t[idx] for t in self.adj))
+        return out
+
+    # a graph-stacked slab's members: the vote indexes the slots and rows
+    # by member, so each member gets a copy of its graph's
+    members_of = take
+
+    def member_copy_bytes(self) -> int:
+        s = self.slab
+        return row_bytes(s.src, s.dst, s.weight, s.alive, self.adj)
 
     def step(self, labels, key, update_prob: float):
         if self.adj is not None:
@@ -99,8 +119,9 @@ def lpm_members(prep: Prepared, keys: torch.Tensor,
             break
         every = act.numel() == m
         lab = labels if every else labels[act]
+        p = prep if every else prep.take(act)
         k = prng.fold_in(keys if every else keys[act], it)
-        new, nw = prep.step(lab, k, update_prob)
+        new, nw = p.step(lab, k, update_prob)
         if every:
             labels, n_want = new, nw
         else:

@@ -17,11 +17,12 @@ from fastconsensus_tpu_torch.utils.env import env_int
 
 
 def members_per_call(slab: GraphSlab, n_p: int,
-                     member_bytes: Optional[Callable[[GraphSlab], int]] = None
-                     ) -> int:
+                     member_bytes: Optional[Callable[[GraphSlab], int]] = None,
+                     extra_bytes: int = 0) -> int:
     """Members run at once: one member's temporaries (``member_bytes``,
-    default a Louvain sweep's) within FCTPU_ENSEMBLE_BUDGET_MB (default
-    2048), or FCTPU_ENSEMBLE_CHUNK (<= 0: no chunking)."""
+    default a Louvain sweep's) plus ``extra_bytes`` of state copied per
+    member within FCTPU_ENSEMBLE_BUDGET_MB (default 2048), or
+    FCTPU_ENSEMBLE_CHUNK (<= 0: no chunking)."""
     c = env_int("FCTPU_ENSEMBLE_CHUNK")
     if c is not None:
         return n_p if c <= 0 else min(c, n_p)
@@ -30,4 +31,18 @@ def members_per_call(slab: GraphSlab, n_p: int,
 
         member_bytes = louvain.sweep_temp_bytes
     budget = env_int("FCTPU_ENSEMBLE_BUDGET_MB", 2048) << 20
-    return max(1, min(n_p, budget // max(1, member_bytes(slab))))
+    return max(1, min(n_p, budget // max(1, member_bytes(slab) +
+                                          extra_bytes)))
+
+
+def grid_up(n: int, minimum: int = 1) -> int:
+    """Smallest value >= n on the coarse {2^k, 3*2^k} grid (1, 2, 3, 4,
+    6, 8, 12, 16, 24, 32, 48, 64, ...), the reference's rule.  The shape
+    buckets (``serve/bucketer.py``) pad every graph's node and edge counts
+    up to it; successive classes are at most 4/3 apart."""
+    n = max(int(n), int(minimum), 1)
+    p = 1
+    while p < n:
+        p *= 2
+    q = (3 * p) // 4
+    return q if p >= 4 and q >= n else p

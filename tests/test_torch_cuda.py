@@ -306,3 +306,69 @@ def test_checkpoint_written_on_card_resumes_on_cpu(card, tmp_path):
                                   np.stack(full.partitions))
     assert [h["n_alive"] for h in resumed.history] == \
         [h["n_alive"] for h in full.history]
+
+
+def test_batch_on_card_equals_solo_card_runs(card):
+    """A B = 2 batch of two bucketed graphs (the hash sweep: 1,536-node
+    bucket) on the card: each job equals its solo card run, history and
+    final slab included."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus,
+                                                   run_consensus_batch)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.utils import prng
+
+    padded = [bucketer.pad_to_bucket(*_planted(s, n=1100, m=9000),
+                                     device=card) for s in (10, 11)]
+    assert len({b.key() for _, b in padded}) == 1
+    slabs, nc = [s for s, _ in padded], padded[0][1].n_closure
+    det = get_detector("louvain")
+    cfg = ConsensusConfig(n_p=4, tau=0.2, delta=0.02, max_rounds=4)
+    res = run_consensus_batch(slabs, det, cfg, n_closure=nc, seeds=[3, 4])
+    assert res.splits == {}
+    for i, (slab, seed) in enumerate(zip(slabs, (3, 4))):
+        solo = run_consensus(slab, det, cfg, key=prng.key(seed, card),
+                             n_closure=nc)
+        assert res[i].history == solo.history
+        np.testing.assert_array_equal(np.stack(res[i].partitions),
+                                      np.stack(solo.partitions))
+        for f in ("src", "dst", "weight", "alive"):
+            assert torch.equal(getattr(res[i].graph, f),
+                               getattr(solo.graph, f))
+
+
+def test_incremental_run_on_card_equals_cpu(card):
+    """``run_consensus(init_labels=, active_mask=)`` on the card and on the
+    CPU: identical partitions and integer history, frozen vertices at
+    their parent labels."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import delta
+    from fastconsensus_tpu_torch.serve.jobs import canonical_edges
+
+    edges, n = _planted(12)
+    u, v, _ = canonical_edges(edges, n)
+    cfg = ConsensusConfig(n_p=4, tau=0.2, delta=0.02, max_rounds=3, seed=6)
+    det = get_detector("louvain")
+    parent = run_consensus(pack_edges(np.stack([u, v], 1), n, device=card),
+                           det, cfg)
+    adds = delta.parse_edge_pairs([[0, 700], [5, 900]], "adds", n)
+    removes = np.stack([u[:2], v[:2]], 1)
+    cu, cv, _ = delta.apply_delta(u, v, None, n, adds, removes)
+    active = delta.neighborhood_mask(cu, cv, n, adds, removes)
+    init = np.stack(parent.partitions)
+    runs = [run_consensus(pack_edges(np.stack([cu, cv], 1), n, device=dev),
+                          det, cfg, init_labels=init, active_mask=active)
+            for dev in ("cpu", card)]
+    np.testing.assert_array_equal(np.stack(runs[1].partitions),
+                                  np.stack(runs[0].partitions))
+    ints = [k for k in runs[0].history[0] if k not in
+            ("agreement", "modularity_mean", "modularity_by_member")]
+    assert [[h[k] for k in ints] for h in runs[1].history] == \
+        [[h[k] for k in ints] for h in runs[0].history]
+    assert 0 < active.sum() < n
+    for i, p in enumerate(runs[1].partitions):
+        np.testing.assert_array_equal(p[~active], init[i][~active])
