@@ -13,46 +13,68 @@ Phases (any failure exits non-zero without the final line):
              and 25, two wide shapes and the widths around its
              flat/sorted cut-over, and with non-integer weights against
              the left fold in slot order (two launches)
-3. karate    the port's CLI on the karate club graph with --alg louvain
+3. memory    each sweep path's per-member memory model against the card:
+             one detect call of 8 members (4 sweeps) after a one-member
+             warm-up; the matmul sweep on the emailEu stand-in, the dense,
+             hybrid and hash sweeps, Leiden (hybrid rows) on gpu_cpu's
+             planted 5k graph, the hybrid sweep on lfr100k as phase 7
+             packs it, and the LPM dense vote on the emailEu stand-in:
+             the peak over the baseline a member must be at most the
+             model, and the model at most twice it
+4. karate    the port's CLI on the karate club graph with --alg louvain
              (matmul sweep path), leiden and lpm: 20 valid partitions each
-4. gpu_cpu   one planted 5k-node graph through the hybrid path on the card
+5. gpu_cpu   one planted 5k-node graph through the hybrid path on the card
              and on the CPU with louvain and leiden, and through the
              sorted-run vote (d_cap 0) with lpm; louvain with the scatter
              wedge sampler; cnm and infomap (n_p=8, at most 2 rounds,
              delta 0) on the emailEu stand-in: identical partitions and
              integer round histories
-5. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
-6. lfr100k   the planted100k stress configuration of bench.py on
+6. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
+7. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
              delta=0.02, max_rounds=8, closure_tau=0.2; afterwards
              row_totals at every shape the run launched it at, checked
              as in phase 2 and timed, and the device memory of one group
              of the scatter wedge sampler at its element cap, on the
              slab at the run's largest capacity
-7. leiden_lfr10k  bench.py's lfr10k configuration on
+8. leiden_lfr10k  bench.py's lfr10k configuration on
              bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
              max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
-             peak memory and n_agg_overflow; row_totals per shape as in 6
-8. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
+             peak memory and n_agg_overflow; row_totals per shape as in 7
+9. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
              size_alpha 0.85, p_in 0.6, p_out 0.02, seed 42): lpm, n_p=50,
              tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
-             kernel's sorted regime; row_totals per shape as in 6, and the
+             kernel's sorted regime; row_totals per shape as in 7, and the
              vote's sorted-rank step timed at the run's shape
-9. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
+10. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
              the card) on the emailEu stand-in: n_p=50, tau=0.7,
              delta=0.02, seed 0; rounds, wall, host C++ seconds and tail
              seconds per round, peak memory, member NMI to the planted
              labels
-10. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
+11. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
              n_p=50, tau=0.6, delta=0.02, max_rounds=8; both cells are
              run once more on the CPU and must give identical partitions,
              round histories and output trees
-11. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
+12. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
              hybrid rows on gpu_cpu's planted 5k graph; 4 rounds
              uninterrupted against 2 rounds resumed to 4, and against a
              card resume of a checkpoint the CPU wrote: equal partitions,
              histories and output trees
-12. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
+13. recovery  the CLI with --checkpoint --resume --detect-cache
+             --trace-jsonl --trace --dump-on-signal on resume's graph and
+             settings, FCTPU_DETECT_CALL_MEMBERS=2: killed (SIGQUIT: a
+             fcflight bundle naming the cache; then SIGKILL) once round
+             2's second chunk is on disk, restarted under
+             fastconsensus_tpu_torch.utils.supervise: output trees equal
+             to an uninterrupted run's, cached chunks reused; row_totals
+             per shape as in 7
+14. trace    the CLI on the same graph, 2 rounds, with the tracer off,
+             on (--trace), and on with --profile-dir: the Perfetto file's
+             fcobs spans in order, its device track, the row_totals
+             kernel events inside the run's spans, the JSONL counters and
+             the device-memory gauge against max_memory_allocated; the
+             three walls printed
+15. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
              delta=0.02, seed 0, at most 16 rounds): a parent run, a child
              graph with a seeded 1% edge delta (serve/delta.py), the
              incremental run from the parent's partitions with the
@@ -60,19 +82,21 @@ Phases (any failure exits non-zero without the final line):
              rounds), a from-scratch run on the child,
              and the incremental run again on the CPU: identical
              partitions and integer history, frozen vertices at their
-             parent labels; row_totals per shape as in 6
-13. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
+             parent labels; row_totals per shape as in 7
+16. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
              (louvain, n_p=20, tau=0.2, delta=0.02, closure_tau=0.2, seeds
              11/22/33/44, at most 16 rounds): A, four emailEu stand-ins
              (graph seeds 42-45, the matmul sweep); B, lfr10k and three
              children of seeded 2% edge deltas (the hash sweep); each job
              equal to its solo run on the card; the bucket, batch wall,
              solo walls, peak device memory of the batch and of the
-             largest solo run, splits and rounds printed
+             largest solo run, splits and rounds printed; batch A's peak
+             within the member budget plus the slabs
 
-Kernel launch counters are reset just before phases 5-8, 11, 12 (its
-incremental card run) and 13 and read just after: phases 6-8, 11 and 12
-must launch ``row_totals``, phase 5 ``fused_move_rows``; phase 13's
+Kernel launch counters are reset just before phases 6-9, 12, 13 (its
+uninterrupted run), 14 (its profiled run), 15 (its incremental card run)
+and 16 and read just after: phases 7-9 and 12-15 must launch
+``row_totals``, phase 6 ``fused_move_rows``; phase 16's
 bucketed slabs take the matmul and hash sweeps, which launch no kernel
 of the port (a job split off to a solo run may).  The second-to-last
 lines are the kernels' JSON record and the card's name and power limit;
@@ -602,6 +626,9 @@ def phase_lfr100k(state):
     n_p = state["n_p"]
     if n_p != 200:
         log(f"lfr100k: n_p cut 200 -> {n_p} to fit the time limit")
+    if state["max_rounds"] != 8:
+        log(f"lfr100k: max_rounds cut 8 -> {state['max_rounds']} to fit "
+            f"the time limit")
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rk.reset_launches()
@@ -757,12 +784,13 @@ def _write_edgelist(edges, path: Path) -> Path:
     return path
 
 
-def _cli_run(args, alg):
+def _cli_run(args, alg, timings=None):
     """The port's CLI on ``args``, as a user runs it, with the consensus
     result it computed captured and two layers timed: the host C++ call of
     each detection (cnm, infomap) and each consensus tail, both
     synchronized.  Returns ``(result, wall s, host s per call, tail s per
-    call)``."""
+    call)``; ``timings`` (a dict) receives ``run_s``, the synchronized
+    seconds of ``run_consensus`` alone."""
     from fastconsensus_tpu_torch import cli, consensus, engine, native
 
     host_s, tail_s, results = [], [], []
@@ -779,7 +807,12 @@ def _cli_run(args, alg):
 
     def capture(fn):
         def wrapper(*a, **k):
+            sync()
+            t0 = time.perf_counter()
             results.append(fn(*a, **k))
+            sync()
+            if timings is not None:
+                timings["run_s"] = time.perf_counter() - t0
             return results[-1]
         return wrapper
 
@@ -807,8 +840,6 @@ def _cli_run(args, alg):
 def _check_same_run(what, a, a_out, b, b_out):
     """Two CLI runs gave equal partitions, integer round histories and
     output trees."""
-    import filecmp
-
     import numpy as np
 
     ints = ("round", "n_alive", "n_unconverged", "n_closure_added",
@@ -820,7 +851,17 @@ def _check_same_run(what, a, a_out, b, b_out):
     check([[h[k] for k in ints] for h in a.history] ==
           [[h[k] for k in ints] for h in b.history],
           f"{what}: round histories differ")
-    for tree in sorted(p.name for p in a_out.iterdir()):
+    _check_same_trees(what, a_out, b_out)
+
+
+def _check_same_trees(what, a_out, b_out):
+    """The output trees under two --out-dir directories are equal."""
+    import filecmp
+
+    trees = sorted(p.name for p in a_out.iterdir())
+    check(trees and trees == sorted(p.name for p in b_out.iterdir()),
+          f"{what}: output trees {trees}")
+    for tree in trees:
         files = sorted(q.name for q in (a_out / tree).iterdir())
         _, bad, err = filecmp.cmpfiles(a_out / tree, b_out / tree, files,
                                        shallow=False)
@@ -956,6 +997,276 @@ def phase_resume(state):
     per_shape = check_and_time_shapes(shapes, seed=4)
     state.setdefault("main_paths", {})["resume"] = dict(
         launches=launches["row_totals"], by_shape=per_shape)
+
+def _wait_for(what, cond, proc=None, timeout: float = 300.0):
+    """Poll ``cond()`` until true; fail if ``proc`` exits first."""
+    t_end = time.monotonic() + timeout
+    while not cond():
+        check(proc is None or proc.poll() is None,
+              f"{what}: the run exited ({proc.returncode if proc else ''}) "
+              f"first")
+        check(time.monotonic() < t_end, f"{what}: timed out")
+        time.sleep(0.01)
+
+
+def phase_recovery(state):
+    """Elastic recovery through the CLI on the card: Louvain, n_p 8, seed
+    11, forced hybrid rows on gpu_cpu's planted 5k graph, 4 rounds,
+    FCTPU_DETECT_CALL_MEMBERS=2.  A process run with --checkpoint
+    --resume --detect-cache --trace-jsonl --trace --dump-on-signal is sent
+    SIGQUIT once round 2's second chunk is on disk (a fcflight bundle
+    must name its detect cache), then SIGKILL; the same command restarted
+    under the supervisor must reuse cached chunks and write the output
+    trees of an uninterrupted run.  Before it, the uninterrupted run and
+    the same run with a fresh chunk cache at the default chunking run
+    here: the cache's cost a detection."""
+    import json as _json
+    import shutil
+    import signal
+
+    from fastconsensus_tpu_torch.obs import postmortem
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    edges, _ = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
+                             hub_degree=600)
+    base = OUT / "recovery"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    path = _write_edgelist(edges, base / "planted5k.txt")
+    run_args = ["-f", path, "--alg", "louvain", "-np", 8, "--seed", 11,
+                "--max-rounds", 4, "--quiet", "--device", DEVICE]
+    knobs = {"FCTPU_MOVE_PATH": "hybrid", "FCTPU_DETECT_CALL_MEMBERS": "2"}
+    cache, flight = base / "cache", base / "fcflight"
+    trace = base / "trace.json"
+    cmd = [sys.executable, "-m", "fastconsensus_tpu_torch.cli"] + [
+        str(a) for a in run_args + [
+            "--out-dir", base / "out", "--checkpoint", base / "ck.npz",
+            "--resume", "--detect-cache", cache, "--trace-jsonl",
+            base / "rounds.jsonl", "--trace", trace, "--dump-on-signal"]]
+    env = dict(os.environ, **knobs, FCTPU_FLIGHT_DIR=str(flight))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    for d in ("out", "full", "cached"):
+        (base / d).mkdir()
+    os.environ.update(knobs)
+    try:
+        rk.reset_launches()
+        full, full_s, _, _ = _cli_run(
+            run_args + ["--out-dir", base / "full"], "louvain")
+        launches = dict(rk.LAUNCHES)
+        shapes = dict(rk.ROW_TOTALS_SHAPES)
+        # the cache's own cost: the driver's default chunking
+        os.environ.pop("FCTPU_DETECT_CALL_MEMBERS")
+        _, cached_s, _, _ = _cli_run(
+            run_args + ["--out-dir", base / "cached", "--detect-cache",
+                        base / "cache_fresh"], "louvain")
+    finally:
+        for k in knobs:
+            os.environ.pop(k, None)
+    t0 = time.perf_counter()
+    with open(base / "killed.log", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            _wait_for("round 0's first chunk",
+                      lambda: any(cache.glob("*_r0_c0.npy")), proc)
+            first_chunk_s = time.perf_counter() - t0
+            _wait_for("round 2's second chunk",
+                      lambda: any(cache.glob("*_r2_c1.npy")), proc)
+            proc.send_signal(signal.SIGQUIT)
+            _wait_for("the fcflight bundle",
+                      lambda: postmortem.list_bundles(str(flight)), proc,
+                      timeout=60)
+        finally:
+            proc.kill()
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    check(launches["row_totals"] > 0, "recovery never launched row_totals")
+    _check_same_trees("recovery: the cached run against the uninterrupted "
+                      "run", base / "full", base / "cached")
+    bundle = Path(postmortem.list_bundles(str(flight))[0])
+    named = _json.loads((bundle / "run.json").read_text())["detect_cache"]
+    check(named == str(cache), f"bundle names detect_cache {named!r}")
+    on_disk = sorted(p.name for p in cache.glob("*.npy"))
+    sup = [sys.executable, "-m", "fastconsensus_tpu_torch.utils.supervise",
+           "--progress", str(base / "rounds.jsonl"), "--poll-seconds",
+           "0.5", "--recover-seconds", "0", "--rotate", str(trace),
+           "--rotate", f"{trace}.jsonl", "--"] + cmd
+    t0 = time.perf_counter()
+    out = subprocess.run(sup, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    restart_s = time.perf_counter() - t0
+    (base / "restart.log").write_text(out.stdout + out.stderr)
+    check(out.returncode == 0, f"supervised restart exit {out.returncode}")
+    _check_same_trees("recovery: restart against the uninterrupted run",
+                      base / "full", base / "out")
+    lines = [_json.loads(x) for x in
+             Path(f"{trace}.jsonl").read_text().splitlines()]
+    counters = [x for x in lines if x.get("kind") == "counters"][-1][
+        "counters"]
+    check(counters.get("detect.chunks_cached", 0) >= 1,
+          f"the restart loaded no cached chunk: {counters}")
+    log(f"recovery: uninterrupted {full.rounds} rounds in {full_s:.2f}s, "
+        f"with the chunk cache (default chunks) {cached_s:.2f}s, "
+        f"{(cached_s - full_s) / (full.rounds + 1) * 1e3:.1f} ms a "
+        f"detection; killed (SIGQUIT, bundle {bundle.name} naming the "
+        f"cache, then SIGKILL) after {killed_s:.2f}s (its first chunk on "
+        f"disk at {first_chunk_s:.2f}s) with {len(on_disk)} chunk files on "
+        f"disk; supervised restart {restart_s:.2f}s: detect.chunks "
+        f"{counters.get('detect.chunks', 0)}, detect.chunks_cached "
+        f"{counters['detect.chunks_cached']}, rounds.total "
+        f"{counters.get('rounds.total')}; output trees equal; launches "
+        f"{launches} (uninterrupted run)")
+    state["recovery"] = dict(full_s=full_s, cached_s=cached_s,
+                             killed_s=killed_s, restart_s=restart_s,
+                             cached_chunks=counters["detect.chunks_cached"])
+    state.setdefault("main_paths", {})["recovery"] = dict(
+        launches=launches["row_totals"],
+        by_shape=check_and_time_shapes(shapes, seed=7))
+
+
+def _timed_calls(spots, sink):
+    """Patch each ``(owner, attribute)`` callable in ``spots`` so its
+    calls add their seconds to ``sink[attribute]``; returns the
+    ``ExitStack`` that restores them."""
+    import contextlib
+    from unittest import mock
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    stack = contextlib.ExitStack()
+    for owner, attr in spots:
+        stack.enter_context(mock.patch.object(
+            owner, attr, timed(attr, getattr(owner, attr))))
+    return stack
+
+
+def phase_trace(state):
+    """fcobs on the card through the CLI: the planted 5k graph (forced
+    hybrid rows), Louvain, n_p 8, 2 rounds, with the tracer disabled,
+    enabled (--trace), and enabled with --profile-dir: the Perfetto
+    file's spans, its device track and where row_totals ran, the JSONL
+    counters and the device-memory gauge."""
+    import json as _json
+    import shutil
+
+    import torch
+
+    from fastconsensus_tpu_torch.obs import device as obs_device
+    from fastconsensus_tpu_torch.obs import export as obs_export
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    edges, _ = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
+                             hub_degree=600)
+    base = OUT / "trace"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    path = _write_edgelist(edges, base / "planted5k.txt")
+    run_args = ["-f", path, "--alg", "louvain", "-np", 8, "--seed", 11,
+                "--max-rounds", 2, "--quiet", "--device", DEVICE]
+    trace = base / "t.json"
+    walls, runs = {}, {}
+    os.environ["FCTPU_MOVE_PATH"] = "hybrid"
+    try:
+        # off and on in turns, then the profiled run
+        for tag, extra in (("disabled", []),
+                           ("enabled", ["--trace", base / "e.json"]),
+                           ("enabled2", ["--trace", base / "e.json"]),
+                           ("disabled2", []),
+                           ("profiled", ["--trace", trace, "--profile-dir",
+                                         base / "prof"])):
+            (base / tag).mkdir()
+            if tag == "profiled":
+                rk.reset_launches()
+                reset_peak()
+            runs[tag] = {}
+            # the profiled run's export, step by step
+            spots = [(torch.profiler.profile, "__exit__"),
+                     (torch.profiler.profile, "export_chrome_trace"),
+                     (obs_device, "load_trace_events"),
+                     (obs_device, "finalize_merge"),
+                     (obs_export, "write_perfetto_blob")]
+            export_s = {}
+            with _timed_calls(spots if tag == "profiled" else [], export_s):
+                res, walls[tag], _, _ = _cli_run(
+                    run_args + ["--out-dir", base / tag] + extra, "louvain",
+                    runs[tag])
+        launches = dict(rk.LAUNCHES)
+        shapes = dict(rk.ROW_TOTALS_SHAPES)
+        peak = read_peak()
+    finally:
+        os.environ.pop("FCTPU_MOVE_PATH", None)
+    check(launches["row_totals"] > 0, "trace run never launched row_totals")
+    blob = _json.loads(trace.read_text())
+    fc = [e for e in blob["traceEvents"]
+          if e.get("ph") == "X" and e.get("cat") == "fcobs"]
+    check([e["ts"] for e in fc] == sorted(e["ts"] for e in fc),
+          "fcobs spans out of ts order")
+    first = {}
+    for e in fc:
+        first.setdefault(e["name"], e["ts"])
+    want = ["round", "detect", "tail", "final_detect"]
+    check(all(n in first for n in want) and
+          [first[n] for n in want] == sorted(first[n] for n in want),
+          f"fcobs spans {sorted(first)}: expected {want} in ts order")
+    attrib = blob["otherData"]["device_attribution"]
+    check(attrib.get("device_track") is True,
+          f"the profiled trace has no device track: {attrib}")
+    lo = min(e["ts"] for e in fc)
+    hi = max(e["ts"] + e["dur"] for e in fc)
+    kern = [e for e in blob["traceEvents"] if e.get("cat") == "kernel" and
+            "row_totals" in str(e.get("name", ""))]
+    check(kern, "no row_totals kernel event in the profiled trace")
+    k_lo = min(e["ts"] for e in kern)
+    k_hi = max(e["ts"] + e.get("dur", 0) for e in kern)
+    check(lo - 5e4 <= k_lo and k_hi <= hi + 5e4,
+          f"row_totals events [{k_lo}, {k_hi}] us outside the run's spans "
+          f"[{lo}, {hi}] us by more than 50 ms")
+    lines = [_json.loads(x) for x in
+             Path(f"{trace}.jsonl").read_text().splitlines()]
+    counters = [x for x in lines if x.get("kind") == "counters"][-1]
+    check(counters["counters"].get("rounds.total") == res.rounds,
+          f"rounds.total {counters['counters'].get('rounds.total')} != "
+          f"{res.rounds}")
+    gauge = blob["otherData"]["counters"]["gauges"].get(
+        "device_mem.peak_bytes_in_use")
+    check(DEVICE != "cuda" or gauge == peak,
+          f"device_mem.peak_bytes_in_use {gauge} != max_memory_allocated "
+          f"{peak}")
+    run_s = {k: v["run_s"] for k, v in runs.items()}
+    log(f"trace: {res.rounds} rounds; run_consensus wall in turns: tracer "
+        f"disabled {run_s['disabled']:.3f}s, enabled "
+        f"{run_s['enabled']:.3f}s, enabled {run_s['enabled2']:.3f}s, "
+        f"disabled {run_s['disabled2']:.3f}s; enabled with --profile-dir "
+        f"{run_s['profiled']:.3f}s (CLI walls, export included: "
+        f"{', '.join(f'{walls[t]:.3f}s' for t in runs)}); "
+        f"{len(fc)} fcobs spans, {len(kern)} row_totals kernel events in "
+        f"[{(k_lo - lo) / 1e3:.1f}, {(k_hi - lo) / 1e3:.1f}] ms of the "
+        f"spans' [0, {(hi - lo) / 1e3:.1f}] ms; device_attribution "
+        f"{attrib}; device_mem.peak_bytes_in_use {gauge} == "
+        f"max_memory_allocated {peak}; launches {launches}")
+    log(f"trace: the profiled run's export, seconds: profiler stop "
+        f"{export_s.get('__exit__', 0):.3f}, export_chrome_trace "
+        f"{export_s.get('export_chrome_trace', 0):.3f}, merge "
+        f"{export_s.get('finalize_merge', 0):.3f} (of it loading the "
+        f"profiler's file {export_s.get('load_trace_events', 0):.3f}), "
+        f"writing the Perfetto file "
+        f"{export_s.get('write_perfetto_blob', 0):.3f}")
+    state["trace_walls"] = dict(cli=walls, run=run_s, export=export_s)
+    # the profiler's trace and the merged file run to hundreds of MB
+    shutil.rmtree(base / "prof")
+    trace.unlink()
+    state.setdefault("main_paths", {})["trace"] = dict(
+        launches=launches["row_totals"],
+        by_shape=check_and_time_shapes(shapes, seed=8))
+
 
 
 def _delta_child(u, v, n: int, frac: float, seed: int):
@@ -1121,6 +1432,85 @@ def _busy_us(events) -> float:
     return busy
 
 
+def phase_memory(state):
+    """Each sweep path's memory model against the card: one detect call
+    of M members (one chunk), after a one-member warm-up that leaves the
+    device's persistent buffers in the baseline; the peak allocated over
+    the baseline, per member, must not exceed the model, which must not
+    exceed twice it."""
+    import dataclasses
+
+    import torch
+
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models import leiden as ld
+    from fastconsensus_tpu_torch.models import louvain as lv
+    from fastconsensus_tpu_torch.models import lpm
+    from fastconsensus_tpu_torch.utils import prng
+
+    m, sweeps = 8, 4
+    planted = planted_graph(5000, 40, 0.08, 0.0004, seed=7, hubs=10,
+                            hub_degree=600)[0]
+    email = cell_inputs("lpm_emaileu", state)[0]
+    lfr_edges, lfr_truth = cell_inputs("lfr100k", state)[:2]
+    p5k = pack_edges(planted, 5000, device=DEVICE)
+    louvain = lv.make_louvain(max_sweeps=sweeps)
+    cases = (
+        ("matmul", "emailEu stand-in", None,
+         pack_edges(email, 1005, device=DEVICE), louvain,
+         lv.sweep_temp_bytes),
+        ("dense", "5k planted", "dense", p5k, louvain, lv.sweep_temp_bytes),
+        ("hybrid", "5k planted", "hybrid", p5k, louvain,
+         lv.sweep_temp_bytes),
+        ("lfr100k", "lfr100k", None,
+         pack_edges(lfr_edges, int(lfr_truth.shape[0]), device=DEVICE),
+         louvain, lv.sweep_temp_bytes),
+        ("hash", "5k planted, budgets zeroed", None,
+         dataclasses.replace(p5k, d_cap=0, d_hyb=0, hub_cap=0), louvain,
+         lv.sweep_temp_bytes),
+        ("leiden", "5k planted, hybrid rows", "hybrid", p5k,
+         ld.make_leiden(max_sweeps=2 * sweeps), ld.member_bytes),
+        ("lpm dense vote", "emailEu stand-in", None,
+         pack_edges(email, 1005, device=DEVICE),
+         lpm.make_lpm(max_iters=sweeps), lpm.member_bytes))
+    keys = prng.partition_keys(prng.key(5, DEVICE), m)
+    rows = []
+    os.environ["FCTPU_ENSEMBLE_CHUNK"] = str(m)
+    try:
+        for name, graph, forced, slab, det, model_fn in cases:
+            if forced:
+                os.environ["FCTPU_MOVE_PATH"] = forced
+            try:
+                path = "dense vote" if model_fn is lpm.member_bytes \
+                    else lv.select_move_path(slab)
+                model = model_fn(slab)
+                det(slab, keys[:1])
+                sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = det(slab, keys)
+                sync()
+                secs = time.perf_counter() - t0
+                per = (torch.cuda.max_memory_allocated() - base) / m
+                del out
+            finally:
+                os.environ.pop("FCTPU_MOVE_PATH", None)
+            log(f"memory {name} ({graph}, {path}, N {slab.n_nodes}, "
+                f"capacity {slab.capacity}, d_cap {slab.d_cap}, d_hyb "
+                f"{slab.d_hyb}, hub_cap {slab.hub_cap}): {m} members, peak "
+                f"over the baseline {per:.0f} bytes a member, model "
+                f"{model} ({model / per:.3f}x), {secs:.3f}s")
+            rows.append(dict(name=name, path=path, members=m,
+                             per_member=per, model=model))
+    finally:
+        os.environ.pop("FCTPU_ENSEMBLE_CHUNK", None)
+    state["memory"] = rows
+    bad = [r["name"] for r in rows
+           if not r["per_member"] <= r["model"] <= 2 * r["per_member"]]
+    check(not bad, f"memory model outside [peak, 2 x peak] for {bad}")
+
+
 def phase_batch(state):
     """``run_consensus_batch``: two batches of four same-bucket jobs (B =
     4, a rung of the batch ladder), each job against the same job run
@@ -1205,6 +1595,14 @@ def phase_batch(state):
             f"{[max(a) if a else 0 for a in alive]}; launches {launches}; "
             f"every job == its solo run on {DEVICE} (partitions, history, "
             f"final slab)")
+        if name == "A" and DEVICE == "cuda":
+            # member chunks within the ensemble budget: the peak is the
+            # budget plus the slabs (the padded four and their stack)
+            budget = int(os.environ.get("FCTPU_ENSEMBLE_BUDGET_MB", 2048))
+            limit = (budget << 20) + 2 * resident
+            log(f"batch A: peak {peak} bytes against the {budget} MiB "
+                f"member budget plus the slabs twice, {limit} bytes")
+            check(peak <= limit, f"batch A peak {peak} > {limit}")
         if launches["row_totals"]:
             # a job split off to a solo run may re-derive hybrid rows
             log(f"batch {name}: row_totals_launches_by_shape="
@@ -1343,12 +1741,14 @@ def smi_line() -> str:
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels,
-          "karate": phase_karate, "gpu_cpu": phase_gpu_cpu,
+          "memory": phase_memory, "karate": phase_karate,
+          "gpu_cpu": phase_gpu_cpu,
           "fused": phase_fused, "lfr100k": phase_lfr100k,
           "leiden_lfr10k": phase_leiden_lfr10k,
           "lpm_emaileu": phase_lpm_emaileu,
           "cnm_emaileu": phase_cnm_emaileu,
           "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume,
+          "recovery": phase_recovery, "trace": phase_trace,
           "delta": phase_delta, "batch": phase_batch}
 EXTRA_PHASES = {"profile": phase_profile}
 

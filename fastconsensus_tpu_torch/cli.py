@@ -5,19 +5,27 @@ reference's for the flags it supports.
 
 Flags as in the reference: ``-f -np -t -d --alg -g --seed --max-rounds
 --capacity --no-grow --align-frac --closure-sampler --closure-tau
---cold-detect --out-dir --quiet --checkpoint --resume``, plus ``--device``
+--cold-detect --out-dir --quiet --checkpoint --resume --detect-cache
+--trace --trace-jsonl --profile-dir --dump-on-signal``, plus ``--device``
 (default ``cuda``; the run fails rather than fall back when CUDA is
 missing).  All five detectors run: louvain, lpm and leiden on the device,
 cnm and infomap as host C++ with the consensus tail on the device.  Output
 trees are the reference's: ``out_partitions_t{t}_d{d}_np{np}/{1..n_p}``
 and ``memberships_t{t}_d{d}_np{np}/{0..n_p-1}``.  Not ported yet:
-``--detect-cache``, ``--trace``, ``--trace-jsonl``, ``--profile-dir``,
-``--dump-on-signal`` and ``--server``.
+``--server``.
+
+A long run survives being killed when it runs under the supervisor with
+``--checkpoint ck.npz --resume --detect-cache DIR``:
+
+    python -m fastconsensus_tpu_torch.utils.supervise --progress r.jsonl \\
+        -- python -m fastconsensus_tpu_torch.cli -f g.txt --checkpoint \\
+        ck.npz --resume --detect-cache cache --trace-jsonl r.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -93,6 +101,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persist consensus state to PATH after every round")
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if it exists")
+    p.add_argument("--detect-cache", type=str, default=None, metavar="DIR",
+                   help="persist completed detection chunks under DIR so a "
+                        "killed run resumes mid-round (pair with "
+                        "--checkpoint/--resume; use a fresh DIR per "
+                        "configuration)")
+    p.add_argument("--trace", nargs="?", const="", default=None,
+                   metavar="PATH",
+                   help="record a runtime observability trace (fcobs): "
+                        "spans for every round / detect chunk / tail plus "
+                        "host-sync counters. Writes Chrome/Perfetto "
+                        "trace_event JSON to PATH (open it in "
+                        "ui.perfetto.dev) and a JSONL event log to "
+                        "PATH.jsonl; bare --trace defaults to "
+                        "fcobs_trace.json under --out-dir. Combine with "
+                        "--profile-dir for one merged host+device timeline")
+    p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH",
+                   help="append per-round stats records to a JSONL file")
+    p.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace to DIR; with --trace, "
+                        "fcobs spans are mirrored into it as profiler "
+                        "ranges (one per round step) and the profiler "
+                        "timeline is merged into the --trace Perfetto "
+                        "artifact (host-only on the CPU)")
+    p.add_argument("--dump-on-signal", action="store_true",
+                   help="install a SIGQUIT handler that dumps an fcflight "
+                        "post-mortem bundle (thread stacks, counters, "
+                        "flight events, the latest consensus round) and "
+                        "lets the run continue; supervise's stall kill "
+                        "sends SIGQUIT before its SIGKILL")
     return p
 
 
@@ -165,15 +202,83 @@ def main(argv: Optional[List[str]] = None) -> int:
                           warm_start=not args.cold_detect,
                           closure_sampler=args.closure_sampler,
                           closure_tau=args.closure_tau, **extra_cfg)
+    from fastconsensus_tpu_torch.obs.device import ProfilerSession
+    from fastconsensus_tpu_torch.obs.roundlog import RoundLog
+
+    round_log = RoundLog(jsonl_path=args.trace_jsonl)
+    last_round: dict = {}
+    if args.dump_on_signal:
+        # SIGQUIT dumps a bundle (stacks, counters, flight ring, the run's
+        # live state) and returns: supervise's stall kill sends it before
+        # its SIGKILL, so a wedged supervised run leaves evidence
+        from fastconsensus_tpu_torch.obs import postmortem as obs_postmortem
+
+        def _collect() -> dict:
+            return {
+                "run": {
+                    "file": args.f,
+                    "config": dataclasses.asdict(cfg),
+                    "device": str(device),
+                    "checkpoint": args.checkpoint,
+                    "resume": args.resume,
+                    "detect_cache": args.detect_cache,
+                },
+                "rounds": {"last": dict(last_round)},
+            }
+
+        obs_postmortem.install_signal_handler(
+            _collect, reason="sigquit",
+            on_written=lambda path: print(
+                f"fcflight bundle written to {path}", file=sys.stderr))
+
+    def on_round(entry):
+        last_round.clear()
+        last_round.update(entry)
+        round_log.on_round(entry)
+
+    obs_tracer = streamer = trace_path = None
+    if args.trace is not None:
+        # fcobs span tracing, installed for the run; with --profile-dir
+        # the spans also annotate the torch.profiler timeline
+        from fastconsensus_tpu_torch.obs import (Tracer, get_registry,
+                                                 set_tracer)
+        from fastconsensus_tpu_torch.obs.export import JsonlStreamer
+
+        trace_path = args.trace or os.path.join(args.out_dir,
+                                                "fcobs_trace.json")
+        get_registry().reset()
+        obs_tracer = Tracer(annotate=args.profile_dir is not None)
+        set_tracer(obs_tracer)
+        # the .jsonl sidecar streams once a round, so a killed process
+        # leaves every finished round on disk (supervise --rotate chains
+        # the attempts)
+        streamer = JsonlStreamer(trace_path + ".jsonl", obs_tracer)
+        base_on_round = on_round
+
+        def on_round(entry):
+            base_on_round(entry)
+            streamer.flush()
+
     t0 = time.perf_counter()
+    run_ok = False
+    prof = ProfilerSession(args.profile_dir, device)
     try:
-        result = run_consensus(slab, detector, cfg,
-                               checkpoint_path=args.checkpoint,
-                               resume=args.resume)
+        with prof:
+            result = run_consensus(slab, detector, cfg,
+                                   checkpoint_path=args.checkpoint,
+                                   resume=args.resume, on_round=on_round,
+                                   detect_cache_dir=args.detect_cache)
+        run_ok = True
     except ValueError as e:
-        # a checkpoint written by another configuration: an operator error
+        # a checkpoint written by another configuration, or a stale
+        # detect cache: an operator error
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        # a failed run still writes its (partial) trace
+        if obs_tracer is not None:
+            _write_trace(args, obs_tracer, streamer, trace_path, prof,
+                         device, run_ok)
     elapsed = time.perf_counter() - t0
     if not args.quiet:
         for h in result.history:
@@ -195,6 +300,37 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"wrote {len(result.partitions)} partitions to {out_dir} "
               f"and {mem_dir}", file=sys.stderr)
     return 0
+
+
+def _write_trace(args, obs_tracer, streamer, trace_path, prof, device,
+                 run_ok: bool) -> None:
+    """Export the fcobs trace (Perfetto JSON, the JSONL sidecar's closing
+    counters) and reset the ambient tracer."""
+    from fastconsensus_tpu_torch.obs import counters as obs_counters
+    from fastconsensus_tpu_torch.obs import export as obs_export
+    from fastconsensus_tpu_torch.obs import set_tracer
+
+    set_tracer(None)
+    obs_counters.record_device_memory(device=device)
+    snapshot = obs_counters.get_registry().snapshot()
+    events = obs_tracer.events()
+    blob = obs_export.to_perfetto(events, snapshot)
+    merged_note = ""
+    if args.profile_dir:
+        from fastconsensus_tpu_torch.obs.device import finalize_merge
+
+        blob, info = finalize_merge(blob, prof, obs_tracer.t0)
+        if info.get("merged"):
+            merged_note = (" [merged host+device]" if info["device_track"]
+                           else " [merged, host-only profile]")
+    obs_export.write_perfetto_blob(trace_path, blob)
+    streamer.close(snapshot)
+    if not args.quiet and run_ok:
+        print(obs_export.summary_table(events, snapshot), file=sys.stderr)
+    partial = "" if run_ok else " (partial: the run failed)"
+    print(f"fcobs trace written to {trace_path}{partial}{merged_note} "
+          f"(open in ui.perfetto.dev); event log at {trace_path}.jsonl",
+          file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -12,24 +12,29 @@ parent run's partitions (``init_labels`` / ``active_mask``).  Rounds run
 one at a time; the reference's fused round blocks are documented
 bit-identical to that.  :func:`run_consensus_batch` runs B same-bucket
 graphs as one member-batched detection stream, each job's result its
-solo run's.
+solo run's.  With ``detect_cache_dir`` every round's detection and the
+final re-detection run in driver chunks persisted as they finish, so a
+killed run restarts within the round it died in.  fcobs spans and
+counters (``obs/``) mark the same places as the reference's.
 
-Not ported yet: the device mesh and the detect cache.
+Not ported yet: the device mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import os
+import time
 import warnings
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from fastconsensus_tpu_torch import policy
-from fastconsensus_tpu_torch.engine import (RoundStats,
+from fastconsensus_tpu_torch import policy, sizing
+from fastconsensus_tpu_torch.engine import (RoundStats, _detect_chunked,
                                             consensus_batch_round,
                                             consensus_round, detect_stacked,
                                             stats_to_host)
@@ -37,8 +42,10 @@ from fastconsensus_tpu_torch.graph import (GraphSlab, check_stackable,
                                            grow_slab, pack_edges,
                                            stack_slabs)
 from fastconsensus_tpu_torch.models.base import Detector
+from fastconsensus_tpu_torch.obs import counters as obs_counters
+from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.utils import prng
-from fastconsensus_tpu_torch.utils.env import resolve_device
+from fastconsensus_tpu_torch.utils.env import env_int, resolve_device
 
 _logger = logging.getLogger("fastconsensus_tpu_torch")
 
@@ -125,10 +132,13 @@ def _resume_from_checkpoint(path: str, slab: GraphSlab,
                             sampler: str):
     """Load and check a checkpoint for :func:`run_consensus`, as the
     reference does: ``(slab, start_round, key, history, labels or None,
-    converged, sampler)``.  Rejects a checkpoint written by another run
-    configuration (the weights are co-membership counts out of the saved
-    n_p), migrates the reference's older formats and grows the slab when
-    the caller packed it larger."""
+    converged, sampler, saved_counters)``.  Rejects a checkpoint written
+    by another run configuration (the weights are co-membership counts
+    out of the saved n_p), migrates the reference's older formats and
+    grows the slab when the caller packed it larger.  The checkpoint's
+    fcobs counters (``{}`` when it has none) are restored into the
+    registry by delta once every check has passed, and handed back so
+    later checkpoints persist them plus this process's increments."""
     from fastconsensus_tpu_torch.utils import checkpoint as ckpt
 
     in_nodes, in_cap = slab.n_nodes, slab.capacity
@@ -149,7 +159,7 @@ def _resume_from_checkpoint(path: str, slab: GraphSlab,
             _logger.info("checkpoint predates closure_sampler; continuing "
                          "with the scatter sampler it was written with")
             sampler = "scatter"
-    extra.pop("_telemetry", None)
+    saved_counters = extra.pop("_telemetry", None) or {}
     labels = extra.get("_labels") if warm else None
     key = prng.wrap_key_data(key_data, device=slab.device)
     saved = {k: extra.get(k) for k in
@@ -189,8 +199,16 @@ def _resume_from_checkpoint(path: str, slab: GraphSlab,
         raise ValueError(
             f"checkpoint {path} was written by a different run "
             f"configuration: {mismatch} (saved, requested)")
+    if saved_counters:
+        # only after every check: a rejected resume leaks no counts
+        reg = obs_counters.get_registry()
+        applied = reg.restore_counters(saved_counters)
+        if applied:
+            _logger.info("restored %d fcobs counter(s) from checkpoint "
+                         "telemetry (rounds.total now %d)", len(applied),
+                         reg.counters().get("rounds.total", 0))
     return (slab, start_round, key, history, labels,
-            bool(extra.get("converged", False)), sampler)
+            bool(extra.get("converged", False)), sampler, saved_counters)
 
 
 class _JobPolicy:
@@ -261,6 +279,7 @@ class _JobPolicy:
 
         deg = slab.degrees().cpu().numpy().astype(np.int64)
         n_alive = int(slab.num_alive())
+        obs_counters.host_sync("budget_histogram", 2)
         new_d_cap = derive_dense_sizing(deg, slab.n_nodes)
         new_hyb, new_hub = derive_hybrid_sizing(deg, slab.n_nodes, n_alive)
         new_agg = derive_agg_sizing(n_alive) if slab.agg_cap > 0 else 0
@@ -278,8 +297,24 @@ class _JobPolicy:
             h["n_hub_overflow"], h["n_alive"], slab.d_cap, new_d_cap,
             slab.d_hyb, new_hyb, slab.hub_cap, new_hub, slab.agg_cap,
             new_agg)
+        obs_counters.get_registry().inc("budgets.rederive_events")
         return dataclasses.replace(slab, d_cap=new_d_cap, d_hyb=new_hyb,
                                    hub_cap=new_hub, agg_cap=new_agg)
+
+
+def _cache_fingerprint(config: ConsensusConfig, slab: GraphSlab,
+                       warm: bool, sampler: str) -> str:
+    """The reference's detect-cache fingerprint of a run: the settings
+    that change its labels and the slab's statics that select the
+    lowering (not the live capacity: labels do not depend on it, so an
+    auto-grow replay keeps its round's chunks).  The reference also
+    hashes its mesh's shape; the port has no mesh (``None``)."""
+    return hashlib.sha1(repr(
+        (config.algorithm, config.n_p, config.tau, config.delta,
+         config.seed, config.max_rounds, slab.n_nodes,
+         slab.cap_hint or slab.capacity, slab.agg_cap, slab.d_cap,
+         slab.d_hyb, slab.hub_cap, config.gamma, warm, config.align_frac,
+         sampler, config.closure_tau, None)).encode()).hexdigest()[:10]
 
 
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
@@ -288,6 +323,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   checkpoint_every: int = 1,
                   resume: bool = False,
                   on_round=None,
+                  detect_cache_dir: Optional[str] = None,
                   n_closure: Optional[int] = None,
                   init_labels=None,
                   active_mask=None) -> ConsensusResult:
@@ -296,8 +332,19 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
 
     ``checkpoint_path`` persists the state every ``checkpoint_every``
     rounds and on convergence; with ``resume`` an existing checkpoint
-    restarts the loop where it stopped (its key, slab, history and labels
-    replace the caller's).
+    restarts the loop where it stopped (its key, slab, history, labels
+    and fcobs counters replace the caller's).
+
+    ``detect_cache_dir``: elastic recovery within a round.  Every round's
+    detection and the final re-detection run in driver chunks of
+    ``members`` keys (``FCTPU_DETECT_CALL_MEMBERS``; else the chunking a
+    killed process recorded in the dir's ``sizing.json``, if its
+    fingerprint matches; else ``sizing.members_per_call`` for the
+    detector), each persisted as it finishes (``engine._detect_chunked``,
+    tagged with a fingerprint of the run and the round), so a restarted
+    process (same config and seed, ``resume`` with a checkpoint for the
+    round state) detects only the chunks still missing.  Clean the dir
+    between unrelated runs.
 
     ``init_labels`` / ``active_mask`` (fcdelta, ``serve/delta.py``): seed
     the run from a prior run's final partitions (``init_labels``
@@ -307,8 +354,14 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     round and the final re-detection (a clamp on the host).  Stagnation
     refreshes still re-detect cold.  Requires a warm-capable detector
     (``warm_start`` on and ``supports_init``); incompatible with
-    checkpoint/resume."""
+    checkpoint/resume.
+
+    fcobs: spans on the ambient tracer (a shared no-op unless a caller
+    set one, so the hooks cost attribute checks) and counters on the
+    process registry, at the reference's places."""
     dev = slab.device
+    tracer = get_tracer()
+    obs_reg = obs_counters.get_registry()
     if key is None:
         key = prng.key(config.seed, dev)
     key = key.to(dev)
@@ -351,11 +404,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     detect_refresh = getattr(detect, "refresh_variant", None) or detect
 
     cur_labels: Optional[torch.Tensor] = None
+    saved_counters: Dict[str, int] = {}
     if resume and checkpoint_path is not None and \
             os.path.exists(checkpoint_path):
         (slab, start_round, key, prior_history, cur_labels,
-         resumed_converged, sampler) = _resume_from_checkpoint(
-            checkpoint_path, slab, config, warm, sampler)
+         resumed_converged, sampler, saved_counters) = \
+            _resume_from_checkpoint(checkpoint_path, slab, config, warm,
+                                    sampler)
     else:
         start_round = 0
         prior_history = []
@@ -367,6 +422,59 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         # resume does: round 0 runs the warm detector
         cur_labels = torch.as_tensor(init_labels.astype(np.int64),
                                      device=dev)
+    # run-scoped telemetry (after any restore): a checkpoint persists the
+    # restored counters plus this run's increments, never counts an
+    # earlier run left in the process registry
+    obs_base = obs_reg.counters()
+
+    def run_telemetry() -> Dict[str, int]:
+        out = dict(saved_counters)
+        for k, v in obs_reg.counters_since(obs_base).items():
+            out[k] = out.get(k, 0) + v
+        return out
+
+    members = n_p
+    cache_fp = ""
+    first_setup = True
+
+    def setup_cache() -> None:
+        """The detect cache's fingerprint and driver chunk size, from the
+        slab's statics: at the start and after a budget re-derivation."""
+        nonlocal members, cache_fp, first_setup
+        os.makedirs(detect_cache_dir, exist_ok=True)
+        fp_base = _cache_fingerprint(config, slab, warm, sampler)
+        pinned = env_int("FCTPU_DETECT_CALL_MEMBERS")
+        prev = sizing.read_sizing(detect_cache_dir) \
+            if first_setup and pinned is None else None
+        if pinned is not None:
+            members = n_p if pinned <= 0 else min(pinned, n_p)
+        elif prev is not None and prev.get("fp") == fp_base:
+            # a restart adopts the killed run's chunking, whatever its
+            # own sizing says, or the round's persisted chunks orphan
+            members = int(prev["members"])
+        else:
+            members = sizing.members_per_call(
+                slab, n_p, getattr(detect, "member_bytes", None))
+        cache_fp = hashlib.sha1(repr((fp_base, members)).encode()
+                                ).hexdigest()[:10]
+        sizing.write_sizing(detect_cache_dir, fp_base, members)
+        first_setup = False
+
+    def regrow_budgets() -> None:
+        """Re-derive starved budgets (``_JobPolicy.regrow_budgets``); new
+        statics re-derive the cache fingerprint too."""
+        nonlocal slab
+        regrown = job.regrow_budgets(slab)
+        if regrown is not slab:
+            slab = regrown
+            if detect_cache_dir:
+                setup_cache()
+
+    def chunked(det: Detector, tag: str) -> Detector:
+        """``det`` through the persisted driver chunks of ``tag``."""
+        return lambda s, ks, init=None: _detect_chunked(
+            det, s, ks, members, cache_dir=detect_cache_dir,
+            cache_tag=f"{cache_fp}_{tag}", init_labels=init)
 
     history: List[dict] = list(prior_history)
     converged = resumed_converged
@@ -380,40 +488,49 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     if warm and cur_labels is None:
         cur_labels = sing
     prev_round_labels = sing
+    if detect_cache_dir:
+        setup_cache()
 
     r = start_round
     while r < end_round:
-        slab = job.regrow_budgets(slab)
+        t_iter = time.perf_counter()
+        regrow_budgets()
         pre_slab = slab
         k = prng.stream(key, prng.STREAM_ROUND, r)
         mode = job.mode(r)
         is_cold = mode != "warm"
         round_detect = {"cold": detect, "refresh": detect_refresh,
                         "warm": detect_warm}[mode]
-        if warm:
-            slab_new, new_labels, stats = consensus_round(
-                slab, k, round_detect, n_p, config.tau, config.delta,
-                n_closure, init_labels=sing if is_cold else cur_labels,
-                align=job.align(r) and not is_cold,
-                closure_tau=config.closure_tau, prev_labels=cur_labels,
-                sampler=sampler, active=active)
-        else:
-            slab_new, new_labels, stats = consensus_round(
-                slab, k, round_detect, n_p, config.tau, config.delta,
-                n_closure, closure_tau=config.closure_tau,
-                prev_labels=prev_round_labels, sampler=sampler)
-        stats = stats_to_host([stats])[0]
+        if detect_cache_dir:
+            round_detect = chunked(round_detect, f"r{r}")
+        with tracer.step_span("round", r, mode=mode):
+            if warm:
+                slab_new, new_labels, stats = consensus_round(
+                    slab, k, round_detect, n_p, config.tau, config.delta,
+                    n_closure, init_labels=sing if is_cold else cur_labels,
+                    align=job.align(r) and not is_cold,
+                    closure_tau=config.closure_tau, prev_labels=cur_labels,
+                    sampler=sampler, active=active)
+            else:
+                slab_new, new_labels, stats = consensus_round(
+                    slab, k, round_detect, n_p, config.tau, config.delta,
+                    n_closure, closure_tau=config.closure_tau,
+                    prev_labels=prev_round_labels, sampler=sampler)
+            stats = stats_to_host([stats])[0]
+        obs_counters.host_sync("round_stats")
         dropped = int(stats.n_dropped)
         if config.auto_grow and dropped > 0:
             # grow from the pre-round state and replay the round: same key,
             # same slot-fill order, so only the dropped survivors change
-            new_cap = pre_slab.capacity + max(2 * dropped,
-                                              pre_slab.capacity // 2)
-            _logger.warning(
-                "edge slab saturated (%d survivors dropped); growing "
-                "capacity %d -> %d and replaying the round", dropped,
-                pre_slab.capacity, new_cap)
-            slab = grow_slab(pre_slab, new_cap)
+            with tracer.span("grow_and_replay", dropped=dropped):
+                obs_reg.inc("slab.regrow_events")
+                new_cap = pre_slab.capacity + max(2 * dropped,
+                                                  pre_slab.capacity // 2)
+                _logger.warning(
+                    "edge slab saturated (%d survivors dropped); growing "
+                    "capacity %d -> %d and replaying the round", dropped,
+                    pre_slab.capacity, new_cap)
+                slab = grow_slab(pre_slab, new_cap)
             continue
         slab = slab_new
         if warm:
@@ -424,39 +541,50 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         entry = _history_entry(stats, rounds, slab.capacity, slab.n_nodes,
                                is_cold)
         job.observe(entry)
+        obs_counters.fold_round(entry)
         if on_round is not None:
             on_round(entry)
+        obs_reg.observe("round.seconds", time.perf_counter() - t_iter)
         converged = bool(stats.converged)
         if checkpoint_path is not None and \
                 (rounds % checkpoint_every == 0 or converged):
             from fastconsensus_tpu_torch.utils import checkpoint as ckpt
 
-            ckpt.save_checkpoint(
-                checkpoint_path, slab, rounds, prng.key_data(key), history,
-                extra={"algorithm": config.algorithm, "n_p": n_p,
-                       "tau": config.tau, "delta": config.delta,
-                       "gamma": config.gamma,
-                       "warm_start": config.warm_start,
-                       "align_frac": config.align_frac,
-                       "closure_sampler": sampler,
-                       "closure_tau": config.closure_tau,
-                       # the port sizes member chunks from memory alone
-                       "member_seconds": None,
-                       "converged": converged},
-                labels=cur_labels if warm else None)
+            with tracer.span("checkpoint", round=rounds):
+                # key data and, when warm, the labels are read back
+                obs_counters.host_sync("checkpoint", 2 if warm else 1)
+                ckpt.save_checkpoint(
+                    checkpoint_path, slab, rounds, prng.key_data(key),
+                    history,
+                    extra={"algorithm": config.algorithm, "n_p": n_p,
+                           "tau": config.tau, "delta": config.delta,
+                           "gamma": config.gamma,
+                           "warm_start": config.warm_start,
+                           "align_frac": config.align_frac,
+                           "closure_sampler": sampler,
+                           "closure_tau": config.closure_tau,
+                           # the port sizes member chunks from memory alone
+                           "member_seconds": None,
+                           "converged": converged},
+                    labels=cur_labels if warm else None,
+                    telemetry=run_telemetry())
         if converged:
             break
 
-    slab = job.regrow_budgets(slab)
+    regrow_budgets()
     final_keys = prng.partition_keys(
         prng.stream(key, prng.STREAM_FINAL), n_p)
     # the warm variant only when the seed labels come from real detection
     final_detect = detect_warm if (
         warm and (cold_start_round == -1 or rounds > start_round)) \
         else detect
-    final_labels = final_detect(slab, final_keys,
-                                cur_labels if warm else None)
-    all_labels = final_labels.cpu().numpy().astype(np.int32)
+    if detect_cache_dir:
+        final_detect = chunked(final_detect, "final")
+    with tracer.span("final_detect"):
+        final_labels = final_detect(slab, final_keys,
+                                    cur_labels if warm else None)
+        all_labels = final_labels.cpu().numpy().astype(np.int32)
+    obs_counters.host_sync("final_labels")
     partitions = [all_labels[i] for i in range(n_p)]
     if active_np is not None:
         # frozen vertices keep the parent's labels through the final
@@ -514,6 +642,8 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     B = len(slabs)
     if B < 1:
         raise ValueError("run_consensus_batch needs at least one slab")
+    tracer = get_tracer()
+    obs_reg = obs_counters.get_registry()
     if keys is not None and seeds is not None:
         raise ValueError("pass seeds or keys, not both")
     check_stackable(slabs)
@@ -552,6 +682,7 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     def split_off(i: int, why: str) -> None:
         solo[i] = True
         results.splits[i] = why
+        obs_reg.inc("batch.solo_splits")
         _logger.info("batch job %d split off to solo tail (%s)", i, why)
 
     def active() -> np.ndarray:
@@ -567,16 +698,21 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
             init = [labels[i] for i in idx]
         elif mode == "cold":
             init = [sing] * len(idx)
-        out = consensus_batch_round(
-            [cur[i] for i in idx],
-            [prng.stream(keys[i], prng.STREAM_ROUND, int(rounds[i]))
-             for i in idx],
-            det, n_p, config.tau, config.delta, n_closure, init,
-            [mode == "warm" and jobs[i].align(int(rounds[i])) for i in idx],
-            [labels[i] for i in idx], closure_tau=config.closure_tau,
-            sampler=sampler)
-        # one readback of the whole batch's stats
-        host = stats_to_host([st for _, _, st in out])
+        with tracer.step_span("batch_block", int(rounds[idx].min()), b=B,
+                              mode=mode):
+            out = consensus_batch_round(
+                [cur[i] for i in idx],
+                [prng.stream(keys[i], prng.STREAM_ROUND, int(rounds[i]))
+                 for i in idx],
+                det, n_p, config.tau, config.delta, n_closure, init,
+                [mode == "warm" and jobs[i].align(int(rounds[i]))
+                 for i in idx],
+                [labels[i] for i in idx], closure_tau=config.closure_tau,
+                sampler=sampler)
+            # one readback of the whole batch's stats
+            host = stats_to_host([st for _, _, st in out])
+        obs_counters.host_sync("batch_block_stats")
+        obs_reg.inc("batch.blocks")
         for i, (slab_new, lab, _), st in zip(idx, out, host):
             if config.auto_grow and int(st.n_dropped) > 0:
                 # run_consensus would grow the slab and replay
@@ -603,6 +739,7 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
                                 jobs[i].mode(int(rounds[i])) == "refresh"
                                 for i, a in enumerate(active())])
             if refresh.any():
+                obs_reg.inc("batch.refresh_rounds", int(refresh.sum()))
                 run_round("cold", detect_refresh, only=refresh)
                 continue
             run_round("warm", detect_warm)
@@ -616,12 +753,18 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
             prng.stream(keys[i], prng.STREAM_FINAL), n_p) for i in batched])
         # run_consensus's rule: the warm variant once a round has run
         final_warm = warm and config.max_rounds > 0
-        final = detect_stacked(
-            detect_warm if final_warm else detect,
-            stack_slabs([cur[i] for i in batched]), final_keys,
-            torch.cat([labels[i] for i in batched]) if warm else None)
-        all_labels = final.cpu().numpy().astype(np.int32)
+        with tracer.span("batch_final_detect", b=B):
+            final = detect_stacked(
+                detect_warm if final_warm else detect,
+                stack_slabs([cur[i] for i in batched]), final_keys,
+                torch.cat([labels[i] for i in batched]) if warm else None)
+            all_labels = final.cpu().numpy().astype(np.int32)
+        obs_counters.host_sync("batch_final_labels")
         for j, i in enumerate(batched):
+            # folded here, not per round: a job split off discards its
+            # batched rounds and its solo rerun folds its own
+            for entry in jobs[i].history:
+                obs_counters.fold_round(entry)
             results[i] = ConsensusResult(
                 partitions=[all_labels[j * n_p + p] for p in range(n_p)],
                 graph=cur[i], rounds=int(rounds[i]),

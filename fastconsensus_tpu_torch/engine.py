@@ -14,24 +14,34 @@ block (``consensus_batch_block``) is :func:`consensus_batch_round` without
 the on-device loop: one round of B same-bucket graphs, one detection
 stream over all of them, the tail per graph.
 
+:func:`_detect_chunked` is the elastic-recovery detection: the members
+run in driver chunks, each persisted to a cache dir as it finishes.
+
 Not ported: the fused solo round block ``consensus_rounds_block``
 (documented bit-identical to per-round execution, so it has no result of
-its own; what it saves is launches and readbacks, CUDA-graph work) and
-the detect-chunk disk cache.
+its own; what it saves is launches and readbacks, CUDA-graph work).
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fastconsensus_tpu_torch.graph import (GraphSlab, agg_compaction_active,
                                            stack_slabs, unstack_slab)
 from fastconsensus_tpu_torch.models.base import Detector
+from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs import quality as obs_quality
+from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.ops import consensus_ops as cops
 from fastconsensus_tpu_torch.utils import prng
+
+_logger = logging.getLogger("fastconsensus_tpu_torch")
 
 
 class RoundStats(NamedTuple):
@@ -152,13 +162,18 @@ def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
     if active is not None and prev_labels is None:
         raise ValueError("active mask requires prev_labels (the freeze "
                          "source for masked-out vertices)")
+    tracer = get_tracer()
     keys, k_closure = round_keys(key, n_p, align)
-    labels = detect(slab, keys, init_labels)
+    with tracer.span("detect"):
+        labels = detect(slab, keys, init_labels)
     if active is not None:
         labels = torch.where(active[None, :], labels, prev_labels)
-    slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau, delta,
-                                 n_closure, closure_tau=closure_tau,
-                                 prev_labels=prev_labels, sampler=sampler)
+    with tracer.span("tail"):
+        slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau,
+                                     delta, n_closure,
+                                     closure_tau=closure_tau,
+                                     prev_labels=prev_labels,
+                                     sampler=sampler)
     return slab, labels, stats
 
 
@@ -225,3 +240,82 @@ def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
             at += n
         out.append(RoundStats(*fields))
     return out
+
+
+def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
+                    members: int, cache_dir: Optional[str] = None,
+                    cache_tag: str = "",
+                    init_labels: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Run detection as ``ceil(n_p / members)`` separate calls of
+    ``members`` keys each (the reference's split dispatch), every chunk
+    synchronized and, with ``cache_dir``, persisted as it finishes.
+
+    Each finished chunk's labels go to ``{cache_dir}/{cache_tag}_c{i}.npy``
+    (int32 ``[members, n_nodes]``, written to ``.tmp`` and renamed), and a
+    restarted run loads finished chunks instead of detecting them again.
+    Results are identical either way: chunk keys are position-derived and
+    the detectors are per-key independent.  The keys are padded to whole
+    chunks by repeating the last key (and ``init_labels`` row), as the
+    reference pads them, so the files match the reference's.  Inside a
+    chunk the detector still chunks its members by memory
+    (``models/base.ensemble``).  ``members >= n_p`` is one call, with no
+    barrier and no cache."""
+    n_p = keys.shape[0]
+    tracer = get_tracer()
+    obs_reg = obs_counters.get_registry()
+    if members >= n_p:
+        with tracer.span("detect_dispatch", members=n_p):
+            return detect(slab, keys, init_labels)
+    n_calls = -(-n_p // members)
+    pad = n_calls * members - n_p
+    if pad:
+        idx = torch.cat([torch.arange(n_p, device=keys.device),
+                         torch.full((pad,), n_p - 1, device=keys.device)])
+        keys = keys[idx]
+        if init_labels is not None:
+            init_labels = init_labels[idx.to(init_labels.device)]
+    dev = slab.device
+    parts = []
+    for i in range(n_calls):
+        path = None
+        if cache_dir:
+            path = os.path.join(cache_dir, f"{cache_tag}_c{i}.npy")
+            if os.path.exists(path):
+                cached = np.load(path)
+                if cached.shape != (members, slab.n_nodes) or \
+                        cached.dtype != np.int32:
+                    raise ValueError(
+                        f"stale detect-chunk cache {path}: shape "
+                        f"{cached.shape} dtype {cached.dtype}, expected "
+                        f"{(members, slab.n_nodes)} int32; clean the "
+                        f"cache dir")
+                parts.append(torch.as_tensor(cached.astype(np.int64),
+                                             device=dev))
+                obs_reg.inc("detect.chunks_cached")
+                _logger.debug("detect call %d/%d: loaded from %s", i + 1,
+                              n_calls, path)
+                continue
+        t0 = time.perf_counter()
+        sl = slice(i * members, (i + 1) * members)
+        with tracer.span("detect_chunk", chunk=i, members=members,
+                         tag=cache_tag):
+            out = detect(slab, keys[sl],
+                         None if init_labels is None else init_labels[sl])
+            # the per-chunk barrier: each chunk's time is its own, and a
+            # chunk is durable only once it is done
+            if out.is_cuda:
+                torch.cuda.synchronize(out.device)
+        obs_counters.host_sync("detect_chunk")
+        dt = time.perf_counter() - t0
+        obs_reg.inc("detect.chunks")
+        obs_reg.observe("detect.call_s", dt)
+        _logger.debug("detect call %d/%d (%d members): %.1fs", i + 1,
+                      n_calls, members, dt)
+        if path is not None:
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:  # np.save would append .npy to tmp
+                np.save(fh, out.cpu().numpy().astype(np.int32))
+            os.replace(tmp, path)
+        parts.append(out)
+    return torch.cat(parts, dim=0)[:n_p]

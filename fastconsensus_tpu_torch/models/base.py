@@ -57,7 +57,8 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
     ``prepare(slab)`` builds the label-independent inputs once per call
     (adjacency rows, strengths); ``run(prep, keys[M, 2], init[M, N] or
     None)`` runs M members; ``member_bytes(slab)`` bounds one member's
-    temporaries (default: a Louvain sweep's).  The lifted detector takes
+    temporaries (default: a Louvain sweep's) and stays on the detector as
+    ``member_bytes``.  The lifted detector takes
     ``init_labels`` to warm-start member i from ``init_labels[i]``.
 
     On a graph-stacked slab ``prepare`` runs once over the G graphs (its
@@ -92,4 +93,6 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
 
     detect.supports_init = True
     detect.supports_stack = True
+    # the consensus driver sizes its persisted detect chunks with it
+    detect.member_bytes = member_bytes
     return detect

@@ -87,9 +87,13 @@ def leiden_single(slab: GraphSlab, key: torch.Tensor,
 
 
 def member_bytes(slab: GraphSlab) -> int:
-    """Rough peak of one member's temporaries: a move phase's sweep, the
-    member's masked refinement slab with its rows and hub prefix, and its
-    aggregate slab with that level's sweep (hash tables or matmul)."""
+    """Bytes of one member's temporaries, phase by phase: the move
+    phase's sweep (``louvain.sweep_temp_bytes``), the member's masked
+    refinement slab (3 bytes a directed slot) with its rows and hub
+    prefix, and its aggregate slab (21 bytes a slot) with the larger of
+    its build (ten int64 words a slot) and that level's sweep (a matmul
+    of the member's own ``[N, N]`` weights, or the hashed aggregation of
+    its directed slots)."""
     n = slab.n_nodes
     cap = slab.capacity
     sweep = lv.sweep_temp_bytes(slab)
@@ -100,10 +104,10 @@ def member_bytes(slab: GraphSlab) -> int:
     agg_cap = slab.agg_cap if agg_compaction_active(slab) else cap
     agg_build = 10 * 8 * cap
     if n <= lv.MATMUL_MAX_N:
-        agg_sweep = 4 * 4 * n * n + 4 * n * n
+        agg_sweep = (lv.MATMUL_CELL_BYTES + 4) * n * n
     else:
-        agg_sweep = 10 * 4 * 2 * agg_cap + 2 * 4 * seg.hash_buckets_for(
-            2 * agg_cap + n)
+        agg_sweep = lv.hash_side_bytes(
+            2 * agg_cap, seg.hash_buckets_for(2 * agg_cap + n))
     return sweep + masked + 21 * agg_cap + max(agg_build, agg_sweep)
 
 

@@ -476,20 +476,65 @@ def select_move_path(slab: GraphSlab) -> str:
     return "hash"
 
 
+# Bytes a candidate (a matmul cell, a dense-row slot or a hashed entry)
+# holds at a sweep's peak, the widest step of seg.pair_jitter: the running
+# hash and mul32's lo, hi, shifted hi and their sum, five int64 words.
+_JITTER_BYTES = 5 * 8
+# A matmul cell at that step: the own-label mask (1), the product s (4),
+# the gain (4), the jitter and the score's candidate mask (1).
+MATMUL_CELL_BYTES = 1 + 4 + 4 + _JITTER_BYTES + 1
+# A dense-row slot at that step: the candidate label (8), clamped (8), its
+# community rep (8), the kernel's total (4) and head (1), the own-label
+# mask (1), the gathered Sigma_tot (4), the gain (4) and the jitter.
+_ROW_SLOT_BYTES = 8 + 8 + 8 + 4 + 1 + 1 + 4 + 4 + _JITTER_BYTES
+# A hashed entry: its neighbour label (8), clamped (8) and rep (8), the
+# looked-up total (4), k_i (4), Sigma_tot (4), own mask (1), the gain (4)
+# and the jitter.
+_HASH_ENTRY_BYTES = 8 + 8 + 8 + 4 + 4 + 4 + 1 + 4 + _JITTER_BYTES
+# A member's per-node vectors live through a sweep: labels, Sigma_tot,
+# reps, best, want and the swap priorities (at most 8 bytes each).
+_NODE_BYTES = 6 * 8
+# Headroom over the sum: the call's shared rows spread over a chunk of
+# members, allocator rounding and the device's scratch buffers.
+_HEADROOM = 9 / 8
+
+
+def hash_side_bytes(n_entries: int, n_buckets: int) -> int:
+    """One member's hashed aggregation: its entries and both float32
+    tables."""
+    return _HASH_ENTRY_BYTES * n_entries + 2 * 4 * n_buckets
+
+
 def sweep_temp_bytes(slab: GraphSlab) -> int:
-    """Rough peak of one member's per-sweep temporaries (the reference's
-    model; it sizes member chunks, which never change results)."""
+    """Peak bytes of one member's per-sweep temporaries on the lowering
+    :func:`select_move_path` picks (it sizes member chunks, which never
+    change results): the sum of the tensors live at the sweep's peak,
+
+    * matmul, per cell of ``[N, N]``: ``MATMUL_CELL_BYTES`` (50), the
+      own-label mask (1), the product ``s`` (4), the gain (4), the
+      jitter's five int64 words (40) and the score's candidate mask (1);
+    * dense, per slot of ``[N, d_cap + 1]``: ``_ROW_SLOT_BYTES`` (78);
+    * hybrid: the larger of the dense side at ``d_hyb + 1`` and, while
+      the hub side runs, the dense side's candidates (label 8, total 4,
+      head 1 a slot) beside the hashed hub entries and their tables;
+    * hash (and the forced-only runs oracle): the hashed aggregation of
+      the ``2 * capacity`` directed entries;
+
+    each plus ``_NODE_BYTES`` a node, times ``_HEADROOM``."""
     path = select_move_path(slab)
     n = slab.n_nodes
     if path == "matmul":
-        return 4 * 4 * n * n
-    if path == "dense":
-        return 6 * 4 * n * (slab.d_cap + 1)
-    if path == "hybrid":
-        return 6 * 4 * n * (slab.d_hyb + 1) + 10 * 4 * slab.hub_cap + \
-            2 * 4 * seg.hash_buckets_for(slab.hub_cap + n)
-    return 10 * 4 * 2 * slab.capacity + \
-        2 * 4 * seg.hash_buckets_for(2 * _cap_hint(slab) + n)
+        live = MATMUL_CELL_BYTES * n * n
+    elif path == "dense":
+        live = _ROW_SLOT_BYTES * n * (slab.d_cap + 1)
+    elif path == "hybrid":
+        slots = n * (slab.d_hyb + 1)
+        live = max(_ROW_SLOT_BYTES * slots, 13 * slots + hash_side_bytes(
+            slab.hub_cap + n, seg.hash_buckets_for(slab.hub_cap + n)))
+    else:
+        live = hash_side_bytes(
+            2 * slab.capacity, seg.hash_buckets_for(2 * _cap_hint(slab) + n))
+    return int(_HEADROOM * (live + _NODE_BYTES * n))
 
 
 def _take(x, idx: torch.Tensor):

@@ -16,9 +16,10 @@ atomically (temporary file, then rename):
 
 Version 2 carries ``d_hyb``/``hub_cap``; version 1 files still load and
 are marked ``extra["_legacy_v1"]`` so `run_consensus` restores that sizing
-from the caller's fresh pack.  The reference may add a ``telemetry``
-block of counters; it is surfaced as ``extra["_telemetry"]`` and the port
-writes none (it has no counter registry).
+from the caller's fresh pack.  An optional ``telemetry`` block holds the
+run's fcobs counter totals (``obs/counters.py``), written by either
+package and surfaced as ``extra["_telemetry"]``; a resumed run restores
+them, so its counters stay cumulative across restarts.
 """
 
 from __future__ import annotations
@@ -40,8 +41,11 @@ _FORMAT_VERSION = 2
 def save_checkpoint(path: str, slab: GraphSlab, rounds_done: int,
                     key_data: np.ndarray, history: List[dict],
                     extra: Optional[Dict[str, Any]] = None,
-                    labels: Optional[torch.Tensor] = None) -> None:
-    """Atomically persist the consensus state after a round."""
+                    labels: Optional[torch.Tensor] = None,
+                    telemetry: Optional[Dict[str, int]] = None) -> None:
+    """Atomically persist the consensus state after a round.
+    ``telemetry``: the run's fcobs counter totals (counters only: series
+    percentiles cannot be merged across processes)."""
     meta = {
         "version": _FORMAT_VERSION,
         "n_nodes": int(slab.n_nodes),
@@ -54,6 +58,8 @@ def save_checkpoint(path: str, slab: GraphSlab, rounds_done: int,
         "history": history,
         "extra": extra or {},
     }
+    if telemetry:
+        meta["telemetry"] = {k: int(v) for k, v in telemetry.items()}
     folder = os.path.dirname(os.path.abspath(path))
     os.makedirs(folder, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")

@@ -372,3 +372,40 @@ def test_incremental_run_on_card_equals_cpu(card):
     assert 0 < active.sum() < n
     for i, p in enumerate(runs[1].partitions):
         np.testing.assert_array_equal(p[~active], init[i][~active])
+
+
+def test_device_memory_reads_the_allocator(card):
+    """obs.counters.device_memory on the card: torch.cuda.memory_stats'
+    keys with the reference's three headline keys taken from them."""
+    from fastconsensus_tpu_torch.obs import counters
+
+    keep = torch.empty(1 << 20, dtype=torch.uint8, device=card)
+    stats = counters.device_memory()
+    raw = torch.cuda.memory_stats(card)
+    assert stats["bytes_in_use"] == raw["allocated_bytes.all.current"] > 0
+    assert stats["peak_bytes_in_use"] == raw["allocated_bytes.all.peak"]
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info(card)[1]
+    assert set(raw) - set(stats) <= {k for k, v in raw.items()
+                                     if not isinstance(v, (int, float))}
+    del keep
+
+
+def test_profiler_session_sees_a_row_totals_launch(card, tmp_path):
+    """A ProfilerSession around one row_totals launch yields a trace with
+    a device track, in which the kernel appears under its own symbol."""
+    from fastconsensus_tpu_torch.obs import device
+
+    lab, w = random_rows(np.random.default_rng(9), 4096, 17, 5)
+    lab, w = torch.as_tensor(lab, device=card), torch.as_tensor(w,
+                                                                device=card)
+    rk.row_totals_cuda(lab, w)               # loaded before the session
+    torch.cuda.synchronize()
+    with device.ProfilerSession(str(tmp_path), card) as sess:
+        rk.row_totals_cuda(lab, w)
+        torch.cuda.synchronize()
+    assert sess.trace_path is not None
+    events = device.load_trace_events(sess.trace_path)
+    assert device._has_device_track(events)
+    assert any(e.get("cat") == "kernel" and "row_totals" in e["name"]
+               for e in events)

@@ -1,0 +1,312 @@
+"""The port's fcobs (``fastconsensus_tpu_torch/obs``) on the CPU: the
+modules copied from the reference, the reference's own cases run against
+the port's copies, the spans and counters of a consensus run against the
+reference's, the CLI's trace flags and the post-mortem signal."""
+
+import json
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+KARATE = str(REPO / "examples" / "karate_club.txt")
+
+COPIED = ("obs/flight.py", "obs/latency.py", "obs/roundlog.py",
+          "obs/export.py", "obs/postmortem.py", "utils/supervise.py")
+
+# Counters the reference takes from XLA executables, with no counterpart
+# in eager PyTorch: the port records none of them.
+NOT_PORTED = {
+    "engine.setup_executables": "jitted executables (re)built per setup",
+    "xla.compiles": "the compile guard's XLA compile count",
+    "rounds_block.seconds": "the fused round block's device call",
+    "host_sync.block_stats": "the fused block's stats readback; the port "
+                             "reads each round's stats (round_stats)",
+}
+
+
+def port_cases(name: str) -> types.ModuleType:
+    """The reference's ``tests/{name}.py`` with the package renamed to the
+    port's: its test functions then exercise the port's modules."""
+    path = REPO / "tests" / f"{name}.py"
+    mod = types.ModuleType(f"port_{name}")
+    mod.__file__ = str(path)
+    src = path.read_text().replace("fastconsensus_tpu",
+                                   "fastconsensus_tpu_torch")
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+@pytest.fixture()
+def registry():
+    from fastconsensus_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.reset()
+    yield reg
+    reg.reset()
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_equals_reference(rel):
+    """The port's copy is the reference's text with the package renamed."""
+    ref = (REPO / "fastconsensus_tpu" / rel).read_text()
+    port = (REPO / "fastconsensus_tpu_torch" / rel).read_text()
+    assert port == ref.replace("fastconsensus_tpu", "fastconsensus_tpu_torch")
+
+
+REFERENCE_CASES = [
+    ("test_flight", "test_ring_bound_and_drop_accounting"),
+    ("test_flight", "test_concurrent_writers_keep_ring_integrity"),
+    ("test_flight", "test_merge_events_filters_and_limit"),
+    ("test_flight", "test_bundle_write_schema_and_listing"),
+    ("test_flight", "test_bundle_render_and_diff"),
+    ("test_latency", "test_bucket_index_boundaries"),
+    ("test_latency", "test_histogram_counts_sums_and_quantiles"),
+    ("test_latency", "test_exact_merge_across_four_concurrent_writers"),
+    ("test_latency", "test_diff_snapshots_attributes_a_window"),
+    ("test_obs", "test_span_nesting_ordering_and_args"),
+    ("test_obs", "test_disabled_tracer_allocates_and_records_nothing"),
+    ("test_obs", "test_traced_decorator_uses_the_ambient_tracer"),
+    ("test_obs", "test_tracer_is_thread_safe"),
+    ("test_obs", "test_annotated_tracer_still_records_host_spans"),
+    ("test_obs", "test_registry_counters_gauges_series"),
+    ("test_obs", "test_perfetto_export_roundtrips_with_ordered_ts"),
+    ("test_obs", "test_jsonl_export_roundtrips"),
+    ("test_obs", "test_jsonl_chain_reader_rebases_ts_across_segments"),
+    ("test_obs", "test_jsonl_chain_reader_picks_up_profiler_sidecars"),
+    ("test_obs", "test_jsonl_streamer_survives_abrupt_death"),
+    ("test_obs", "test_restore_counters_is_a_delta_restore"),
+    ("test_obs", "test_summary_table_formats"),
+]
+
+
+@pytest.mark.parametrize("module,case", REFERENCE_CASES)
+def test_reference_case_on_the_port(module, case, tmp_path, registry):
+    """The reference's flight-recorder, latency and export cases, run
+    against the port's modules."""
+    fn = getattr(port_cases(module), case)
+    args = {"tmp_path": tmp_path, "registry": registry}
+    fn(**{k: args[k] for k in fn.__code__.co_varnames[
+        :fn.__code__.co_argcount]})
+
+
+def _karate_slab():
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+    edges, _, ids = read_edgelist(KARATE)
+    return pack_edges(edges, len(ids), device="cpu")
+
+
+def test_disabled_tracer_records_nothing_in_a_run(registry):
+    """With the ambient tracer disabled (the default) a run records no
+    span, while the always-on counters still count its rounds."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import get_tracer
+
+    tracer = get_tracer()
+    assert not tracer.enabled
+    res = run_consensus(_karate_slab(), get_detector("louvain"),
+                        ConsensusConfig(n_p=6, max_rounds=2, seed=0))
+    assert tracer.events() == []
+    assert registry.counters()["rounds.total"] == res.rounds
+
+
+def test_run_counters_equal_the_reference(registry, monkeypatch):
+    """A karate run's history-derived counters and series equal the
+    reference's for the same config; its spans are the reference's
+    names; the compile and executable counters of the reference have no
+    counterpart here (NOT_PORTED)."""
+    from fastconsensus_tpu.consensus import ConsensusConfig as JConfig
+    from fastconsensus_tpu.consensus import run_consensus as jrun
+    from fastconsensus_tpu.graph import pack_edges as jpack
+    from fastconsensus_tpu.models.registry import get_detector as jdetector
+    from fastconsensus_tpu.obs import get_registry as jregistry
+    from fastconsensus_tpu.utils.io import read_edgelist
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import Tracer, use_tracer
+
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
+    kw = dict(algorithm="louvain", n_p=6, tau=0.2, delta=0.02,
+              max_rounds=3, seed=0)
+    edges, _, ids = read_edgelist(KARATE)
+    jreg = jregistry()
+    jreg.reset()
+    jrun(jpack(edges, len(ids)), jdetector("louvain"), JConfig(**kw))
+    tr = Tracer()
+    with use_tracer(tr):
+        res = run_consensus(_karate_slab(), get_detector("louvain"),
+                            ConsensusConfig(**kw))
+    mine, theirs = registry.counters(), jreg.counters()
+    derived = [k for k in theirs if k.startswith(
+        ("rounds.", "closure.", "repair.", "capacity.", "quality."))]
+    assert {"rounds.total", "rounds.cold", "closure.edges_added",
+            "quality.labels_changed_total"} <= set(derived)
+    assert {k: mine.get(k) for k in derived} == \
+        {k: theirs[k] for k in derived}
+    for name in ("round.seconds", "round.converged_frac",
+                 "consensus.quality.agreement",
+                 "consensus.quality.churn_frac"):
+        assert len(registry.series(name)) == len(jreg.series(name)) == \
+            res.rounds
+    np.testing.assert_allclose(registry.series("round.converged_frac"),
+                               jreg.series("round.converged_frac"))
+    assert mine["host_sync.round_stats"] == res.rounds
+    assert mine["host_sync.final_labels"] == 1
+    for name in NOT_PORTED:
+        assert not any(k.startswith(name) for k in mine), name
+        assert name not in registry.snapshot()["series"]
+    spans = [e for e in tr.events()]
+    rounds = [e for e in spans if e["name"] == "round"]
+    assert [e["args"]["step"] for e in rounds] == list(range(res.rounds))
+    assert {e["args"]["mode"] for e in rounds} <= {"cold", "warm",
+                                                   "refresh"}
+    assert {e["name"] for e in spans} >= {"round", "detect", "tail",
+                                          "final_detect"}
+    assert {e["parent"] for e in spans if e["name"] in
+            ("detect", "tail")} == {"round"}
+    jreg.reset()
+
+
+def test_checkpoint_telemetry_survives_a_resume(tmp_path, registry):
+    """Checkpoints carry the run's counters and a resumed process restores
+    them: its rounds.total counts the whole run; a checkpoint without
+    telemetry (the port's before this field) still loads."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.utils import checkpoint as ckpt
+
+    ck = str(tmp_path / "ck.npz")
+    det = get_detector("louvain")
+    run_consensus(_karate_slab(), det,
+                  ConsensusConfig(n_p=4, max_rounds=2, delta=0.0),
+                  checkpoint_path=ck)
+    extra = ckpt.load_checkpoint(ck, device="cpu")[4]
+    assert extra["_telemetry"]["rounds.total"] == 2
+    assert extra["_telemetry"]["host_sync.checkpoint"] == 2 * 2
+    registry.reset()                      # a fresh process
+    res = run_consensus(_karate_slab(), det,
+                        ConsensusConfig(n_p=4, max_rounds=3, delta=0.0),
+                        checkpoint_path=ck, resume=True)
+    assert res.rounds == 3
+    assert registry.counters()["rounds.total"] == 3
+    assert ckpt.load_checkpoint(ck, device="cpu")[4]["_telemetry"][
+        "rounds.total"] == 3
+
+
+def _cli(tmp_path, *extra):
+    from fastconsensus_tpu_torch.cli import main
+
+    return main(["-f", KARATE, "--alg", "lpm", "-np", "4", "-d", "0.1",
+                 "--max-rounds", "2", "--seed", "1", "--device", "cpu",
+                 "--out-dir", str(tmp_path), "--quiet", *extra])
+
+
+def test_cli_trace_writes_perfetto_and_jsonl(tmp_path, registry):
+    from fastconsensus_tpu_torch.obs import get_tracer
+
+    trace = tmp_path / "run_trace.json"
+    assert _cli(tmp_path, "--trace", str(trace)) == 0
+    blob = json.loads(trace.read_text())
+    xs = [e for e in blob["traceEvents"] if e.get("ph") == "X"]
+    assert {e["name"] for e in xs} >= {"round", "detect", "tail",
+                                       "final_detect"}
+    assert [e["ts"] for e in xs] == sorted(e["ts"] for e in xs)
+    lines = [json.loads(x) for x in open(f"{trace}.jsonl")]
+    assert lines[-1]["kind"] == "counters"
+    assert lines[-1]["counters"]["rounds.total"] == \
+        len([e for e in xs if e["name"] == "round"]) >= 1
+    # no allocator stats on the CPU, so no device-memory gauge
+    assert not any(k.startswith("device_mem.")
+                   for k in blob["otherData"]["counters"]["gauges"])
+    assert not get_tracer().enabled
+
+
+def test_cli_trace_with_profile_dir_merges_one_timeline(tmp_path,
+                                                        registry):
+    """--trace + --profile-dir on the CPU: one Perfetto file, host-only
+    (no device track), whose profiler ranges line up with the fcobs spans
+    of the same names on one clock."""
+    trace = tmp_path / "merged.json"
+    assert _cli(tmp_path, "--trace", str(trace), "--profile-dir",
+                str(tmp_path / "prof")) == 0
+    blob = json.loads(trace.read_text())
+    attrib = blob["otherData"]["device_attribution"]
+    assert attrib["merged"] and not attrib["device_track"]
+    fc = {e["name"] + (f"#{e['args']['step']}" if e["name"] == "round"
+                       else ""): e for e in blob["traceEvents"]
+          if e.get("cat") == "fcobs" and e.get("ph") == "X"}
+    ann = {e["name"]: e for e in blob["traceEvents"]
+           if e.get("cat") == "user_annotation"}
+    assert {"round#0", "final_detect"} <= set(fc) <= set(ann)
+    for name, span in fc.items():
+        # the range encloses its span (entered first, left last), to
+        # within the clock anchor's error, and starts just before it
+        a = ann[name]
+        assert a["ts"] <= span["ts"] + 2e3, name
+        assert a["ts"] + a["dur"] >= span["ts"] + span["dur"] - 2e3, name
+        assert span["ts"] - a["ts"] < 5e4, name
+
+
+def test_device_memory_is_none_on_the_cpu(registry):
+    from fastconsensus_tpu_torch.obs import counters
+
+    assert counters.device_memory("cpu") is None
+    assert counters.record_device_memory(device="cpu") is None
+    assert registry.gauges() == {}
+
+
+def test_dump_on_signal_writes_a_bundle_naming_the_cache(tmp_path):
+    """--dump-on-signal in a process of its own (a signal handler must not
+    be installed in a test worker): SIGQUIT during round 1 writes a
+    fcflight bundle naming the run's detect cache and last round, and the
+    run goes on to its output trees."""
+    code = (
+        "import os, signal, sys\n"
+        "from fastconsensus_tpu_torch import cli, consensus\n"
+        "run = consensus.run_consensus\n"
+        "def quit_in_round_1(*a, on_round=None, **k):\n"
+        "    def hook(entry):\n"
+        "        on_round(entry)\n"
+        "        if entry['round'] == 1:\n"
+        "            os.kill(os.getpid(), signal.SIGQUIT)\n"
+        "    return run(*a, on_round=hook, **k)\n"
+        "consensus.run_consensus = quit_in_round_1\n"
+        f"sys.exit(cli.main(['-f', {KARATE!r}, '--alg', 'lpm', '-np', "
+        f"'4', '--max-rounds', '2', '--device', 'cpu', '--quiet', "
+        f"'--out-dir', {str(tmp_path)!r}, '--detect-cache', "
+        f"{str(tmp_path / 'cache')!r}, '--dump-on-signal']))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               FCTPU_FLIGHT_DIR=str(tmp_path / "fcflight"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "fcflight bundle written to" in out.stderr
+    (bundle,) = (tmp_path / "fcflight").iterdir()
+    run = json.loads((bundle / "run.json").read_text())
+    assert run["detect_cache"] == str(tmp_path / "cache")
+    assert run["device"] == "cpu"
+    rounds = json.loads((bundle / "rounds.json").read_text())
+    assert rounds["last"]["round"] == 1
+    assert any(p.name.startswith("out_partitions_")
+               for p in tmp_path.iterdir())
