@@ -6,13 +6,16 @@ reference's for the flags it supports.
 Flags as in the reference: ``-f -np -t -d --alg -g --seed --max-rounds
 --capacity --no-grow --align-frac --closure-sampler --closure-tau
 --cold-detect --out-dir --quiet --checkpoint --resume --detect-cache
---trace --trace-jsonl --profile-dir --dump-on-signal``, plus ``--device``
-(default ``cuda``; the run fails rather than fall back when CUDA is
-missing).  All five detectors run: louvain, lpm and leiden on the device,
-cnm and infomap as host C++ with the consensus tail on the device.  Output
-trees are the reference's: ``out_partitions_t{t}_d{d}_np{np}/{1..n_p}``
-and ``memberships_t{t}_d{d}_np{np}/{0..n_p-1}``.  Not ported yet:
-``--server``.
+--trace --trace-jsonl --profile-dir --dump-on-signal --server``, plus
+``--device`` (default ``cuda``; the run fails rather than fall back when
+CUDA is missing).  All five detectors run: louvain, lpm and leiden on the
+device, cnm and infomap as host C++ with the consensus tail on the device.
+Output trees are the reference's: ``out_partitions_t{t}_d{d}_np{np}/
+{1..n_p}`` and ``memberships_t{t}_d{d}_np{np}/{0..n_p-1}``.
+
+``--server URL`` submits the run to a resident server (``python -m
+fastconsensus_tpu_torch.serve``, or the reference's) and writes the same
+trees locally; that path imports neither torch nor jax.
 
 A long run survives being killed when it runs under the supervisor with
 ``--checkpoint ck.npz --resume --detect-cache DIR``:
@@ -91,6 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cold-detect", action="store_true",
                    help="disable warm-started detection (every round "
                         "re-derives partitions from singletons)")
+    p.add_argument("--server", type=str, default=None, metavar="URL",
+                   help="submit the run to a running fcserve instance "
+                        "(python -m fastconsensus_tpu_torch.serve) instead "
+                        "of executing locally: the resident server keeps "
+                        "its device warm and answers repeats from its "
+                        "result cache. Outputs are written locally as "
+                        "usual; engine-local flags (--device/--checkpoint/"
+                        "--resume/--detect-cache/--trace/--trace-jsonl/"
+                        "--profile-dir/--capacity/--dump-on-signal) are "
+                        "ignored")
     p.add_argument("--out-dir", type=str, default=".",
                    help="directory to create output trees in (default: .)")
     p.add_argument("--device", type=str, default="cuda",
@@ -151,6 +164,71 @@ def check_arguments(args) -> Optional[str]:
     return None
 
 
+def _run_remote(args) -> int:
+    """``--server``: submit to a running fcserve instance and write the
+    reference-layout outputs locally (the torch-free client path)."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.serve.client import (Backpressure,
+                                                      JobFailed, ServeClient,
+                                                      ServeError)
+    from fastconsensus_tpu_torch.utils.io import (read_edgelist,
+                                                  write_partition_dirs)
+
+    try:
+        edges, _, original_ids = read_edgelist(args.f)
+    except (OSError, ValueError) as e:
+        print(f"error reading {args.f}: {e}", file=sys.stderr)
+        return 2
+    client = ServeClient(args.server)
+    t0 = time.perf_counter()
+    try:
+        sub = client.submit(edges=edges, n_nodes=len(original_ids),
+                            algorithm=args.alg, n_p=args.n_p, tau=args.tau,
+                            delta=args.delta, max_rounds=args.max_rounds,
+                            seed=args.seed, gamma=args.gamma,
+                            auto_grow=not args.no_grow,
+                            warm_start=not args.cold_detect,
+                            closure_sampler=args.closure_sampler,
+                            **({"align_frac": args.align_frac}
+                               if args.align_frac is not None else {}),
+                            **({"closure_tau": args.closure_tau}
+                               if args.closure_tau is not None else {}))
+        result = client.wait(sub["job_id"])
+    except Backpressure as e:
+        print(f"error: server overloaded ({e.payload.get('error')}); "
+              f"retry later", file=sys.stderr)
+        return 3
+    except (JobFailed, ServeError, OSError, TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - t0
+    partitions = [np.asarray(p, dtype=np.int32)
+                  for p in result["partitions"]]
+    if not args.quiet:
+        state = "converged" if result.get("converged") else \
+            f"max_rounds={args.max_rounds} reached"
+        src = "cache" if result.get("cached") else \
+            f"bucket {result.get('bucket', {}).get('key')}"
+        if result.get("batch_size", 1) > 1 and not result.get("cached"):
+            # coalesced with same-bucket requests into one batched
+            # device call: the shared elapsed_s reads right with it.
+            # A cache hit's batch metadata is the original run's.
+            src += (f", coalesced x{result['batch_size']} as "
+                    f"{result.get('batch_id')}")
+        print(f"{state} after {result.get('rounds')} round(s) in "
+              f"{elapsed:.2f}s (served from {src}, "
+              f"{result.get('compiles', 0)} compiles)", file=sys.stderr)
+    suffix = f"t{args.tau}_d{args.delta}_np{args.n_p}"
+    out_dir = os.path.join(args.out_dir, f"out_partitions_{suffix}")
+    mem_dir = os.path.join(args.out_dir, f"memberships_{suffix}")
+    write_partition_dirs(out_dir, mem_dir, partitions, original_ids)
+    if not args.quiet:
+        print(f"wrote {len(partitions)} partitions to {out_dir} "
+              f"and {mem_dir}", file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.tau is None:
@@ -159,6 +237,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if err:
         print(err, file=sys.stderr)
         return 2
+    if args.server is not None:
+        # thin-client path: the resident server owns the engine; this
+        # process only reads the file, submits, polls and writes
+        return _run_remote(args)
 
     from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
                                                    run_consensus)

@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from fastconsensus_tpu_torch.analysis.recompile_guard import note_build
+
 SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fastgreedy.cpp", "infomap.cpp", "edgelist.cpp")
@@ -84,6 +86,7 @@ def _compile(so_path: Path) -> None:
     except (OSError, subprocess.TimeoutExpired) as e:
         raise NativeBuildError(f"{CXX}: {e}") from None
     os.replace(tmp, so_path)
+    note_build("g++:fcnative")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

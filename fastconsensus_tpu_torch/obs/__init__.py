@@ -24,9 +24,12 @@
 
 Counters the reference takes from XLA have no counterpart here and are
 not recorded: ``engine.setup_executables``, the compile guard's
-``xla.compiles*`` and the ``rounds_block`` spans and series.  Eager
-PyTorch builds no executables, and the port runs one round per host
-step.
+``xla.compiles*``, the ``rounds_block`` spans and series and the fused
+block's readback ``host_sync.block_stats``.  Eager PyTorch builds no
+executables, and the port runs one round per host step (its readback is
+``host_sync.round_stats``).  The serving tier's build counters
+(``serve.xla_compiles`` and its kin) count the port's ``nvcc``/``g++``
+builds instead (``analysis/recompile_guard.py``).
 
 Continuity: checkpoints carry the counter snapshot
 (``utils/checkpoint.py``'s ``telemetry``), restored by delta on resume,

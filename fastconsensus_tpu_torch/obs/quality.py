@@ -1,16 +1,17 @@
 """Per-round consensus-quality metrics folded into RoundStats.
 
-Counterpart of the device half of ``fastconsensus_tpu/obs/quality.py``
-(see its module docstring for the metric definitions): the weight-band
-histogram, the active frontier, per-member label churn, mean pairwise
-co-membership agreement and per-member Newman modularity.  The integer
-metrics are exact; the two float metrics sum in another order than the
-reference and agree to float32 rounding.
+Counterpart of ``fastconsensus_tpu/obs/quality.py`` (see its module
+docstring for the metric definitions): the weight-band histogram, the
+active frontier, per-member label churn, mean pairwise co-membership
+agreement and per-member Newman modularity, and
+:func:`summarize_history`, the served result's ``quality`` block.  The
+integer metrics are exact; the two float metrics sum in another order
+than the reference and agree to float32 rounding.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -102,3 +103,41 @@ def tail_quality(start_alive: torch.Tensor, counts: torch.Tensor,
         labels_changed=label_churn(labels, prev_labels),
         member_modularity=member_modularity(slab, labels),
         agreement=edge_agreement(counts, start_alive, n_p))
+
+
+def summarize_history(history: List[Dict[str, Any]],
+                      converged: Optional[bool] = None
+                      ) -> Optional[Dict[str, Any]]:
+    """Compress a run's per-round history into the ``quality`` block.
+
+    Returns None when the history carries no quality series (pre-fcqual
+    checkpoints, empty runs) so callers can omit the block instead of
+    emitting a husk.  ``converged`` is the run's final convergence flag;
+    ``rounds_to_converge`` is reported only when the run converged.
+    """
+    qrounds = [h for h in history if h.get("agreement") is not None]
+    if not qrounds:
+        return None
+    last = qrounds[-1]
+    frontier = [float(h.get("frontier_frac", 0.0)) for h in qrounds]
+    # "late" = the second half of the trajectory, where a frontier mask
+    # would actually prune work (round 0 is always ~the whole graph)
+    late = frontier[len(frontier) // 2:]
+    block: Dict[str, Any] = {
+        "rounds": len(history),
+        "final_agreement": float(last["agreement"]),
+        "final_modularity_mean": float(last.get("modularity_mean", 0.0)),
+        "final_frontier_frac": float(last.get("frontier_frac", 0.0)),
+        "final_churn_frac": float(last.get("churn_frac", 0.0)),
+        "late_frontier_frac": sum(late) / max(len(late), 1),
+        "frontier_frac_by_round": frontier,
+        "agreement_by_round": [float(h["agreement"]) for h in qrounds],
+        "labels_changed_total": int(sum(
+            int(h.get("labels_changed", 0)) for h in qrounds)),
+        "agg_overflow_total": int(sum(
+            int(h.get("n_agg_overflow", 0)) for h in qrounds)),
+    }
+    if converged is not None:
+        block["rounds_to_converge"] = \
+            len(history) if bool(converged) else None
+    return block

@@ -44,6 +44,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from fastconsensus_tpu_torch.analysis.recompile_guard import note_build
+
 SENTINEL = 2 ** 31 - 1
 
 # Widest row of the flat-tile regime: ROW_AGG_FLAT_MAX in csrc/row_agg.cuh.
@@ -67,6 +69,11 @@ _lock = threading.Lock()
 _PLAIN_ELEMS = 1 << 26
 
 
+class KernelBuildError(RuntimeError):
+    """A CUDA kernel's source did not build (no ``nvcc``, or ``nvcc``
+    failed)."""
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -80,8 +87,8 @@ def _nvcc() -> str:
     for cand in ("/usr/local/cuda/bin/nvcc",):
         if os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                       "(needs the CUDA toolkit)")
+    raise KernelBuildError("nvcc not found: the CUDA kernels cannot be "
+                           "built (needs the CUDA toolkit)")
 
 
 def _lib_path(name: str) -> Path:
@@ -97,7 +104,8 @@ def _lib_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the kernels' sources that are not built yet, one ``nvcc``
     per source, all running at once.  Returns ``{name: {"seconds": s,
-    "cached": bool, "ptxas": text}}``; raises if any build fails."""
+    "cached": bool, "ptxas": text}}``; raises if any build fails.  Each
+    source it compiles counts one build (``analysis.CompileGuard``)."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -121,10 +129,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
             continue
         os.replace(tmp, lib)
+        note_build(f"nvcc:{name}")
         out[name] = {"seconds": time.perf_counter() - t0, "cached": False,
                      "ptxas": text}
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return out
 
 

@@ -409,3 +409,44 @@ def test_profiler_session_sees_a_row_totals_launch(card, tmp_path):
     assert device._has_device_track(events)
     assert any(e.get("cat") == "kernel" and "row_totals" in e["name"]
                for e in events)
+
+
+def test_service_on_card_equals_cpu_service(card):
+    """The serving tier on the card: a solo job and a coalesced two-job
+    batch through ``ConsensusService(device="cuda")`` give the CPU
+    service's results (same buckets, partitions, rounds)."""
+    from collections import deque
+
+    from fastconsensus_tpu_torch.consensus import ConsensusConfig
+    from fastconsensus_tpu_torch.serve.jobs import Job, JobSpec
+    from fastconsensus_tpu_torch.serve.server import (ConsensusService,
+                                                      ServeConfig)
+
+    def ring(n, chords, shift):
+        idx = np.arange(n)
+        c = np.arange(chords)
+        return np.concatenate([np.stack([idx, (idx + 1) % n], 1),
+                               np.stack([c % n, (c + shift) % n], 1)])
+
+    graphs = [(ring(34, 40, 7), 34), (ring(40, 38, 5), 40)]
+    specs = [JobSpec(edges=e, n_nodes=n, config=ConsensusConfig(
+        n_p=4, max_rounds=4, seed=20 + i))
+        for i, (e, n) in enumerate(graphs)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        svc = ConsensusService(ServeConfig(device=dev, pin_sizing=False,
+                                           max_batch=2))
+        solo = svc.run_spec(specs[0])
+        svc.cache._entries.clear()
+        jobs = [Job(s) for s in specs]
+        svc._drain_group(deque(jobs))
+        assert all(j.state == "done" for j in jobs), [j.error for j in jobs]
+        assert [j.batch_size for j in jobs] == [2, 2]
+        out[dev] = [solo] + [j.result for j in jobs]
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert (g["bucket"], g["rounds"], g["converged"]) == \
+            (c["bucket"], c["rounds"], c["converged"])
+        np.testing.assert_array_equal(np.stack(g["partitions"]),
+                                      np.stack(c["partitions"]))
+    np.testing.assert_array_equal(np.stack(out["cuda"][0]["partitions"]),
+                                  np.stack(out["cuda"][1]["partitions"]))
