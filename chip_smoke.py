@@ -116,6 +116,36 @@ Phases (any failure exits non-zero without the final line):
              run_consensus), SIGTERM (drain, cache spill, exit 0), a
              restart on the same cache file answering the louvain repeat
              from the cache with 0 compiles and the same bytes
+18. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
+             process) over two python -m fastconsensus_tpu_torch.serve
+             --max-batch 4 replicas sharing the card (spawned together,
+             each's seconds to a healthy /healthz): through the router,
+             karate with louvain and lpm (n_p 20, phase 17 B's), lfr10k
+             (phase 15's parent), batch A's four jobs (phase 16's),
+             which share a route key and must coalesce into one rung-4
+             batch on the ring's home for it, queued behind a running
+             job there, and phase 15's 1% delta (routed on its parent,
+             under the default DeltaPolicy; the decision and whether the
+             parent was fetched across replicas printed); per job the
+             replica, route key and timing block; every replica 0
+             builds; row_totals launches summed over the replicas'
+             /metricsz, per shape as in 7; each replica's device memory,
+             the card's used memory and the router's proxy overhead per
+             replica (/fleetz).  Then SIGKILL of the karate louvain
+             group's home once its spill file holds what it served,
+             on_death, and the resubmit answered from the successor's
+             inherited cache (kill-to-answer seconds); add_replica("r2")
+             with prewarm shipping, armed with the drain-time spill fault
+             (FCTPU_FAULT_INJECT ...ResultCache.spill:OSError, count 1);
+             every job resubmitted, each a cache hit with the same bytes;
+             collect_bundles (the killed replica's included) plus the
+             router's own bundle, and fleettrace render holding the
+             lfr10k trace id on the router's and a replica's track; the
+             drain (every live replica exits 0, the armed fault logged);
+             every routed result equal to its library run on the card
+             (solo and karate jobs pad_to_bucket + run_consensus, batch
+             jobs their solo runs, the delta the library path under the
+             replica's decision); the phase's wall
 
 Kernel launch counters are reset just before phases 6-9, 12, 13 (its
 uninterrupted run), 14 (its profiled run), 15 (its incremental card run),
@@ -124,7 +154,10 @@ launch ``row_totals``, phase 6 ``fused_move_rows``; phase 16's
 bucketed slabs take the matmul and hash sweeps, which launch no kernel
 of the port (a job split off to a solo run may); phase 17's lfr10k jobs
 start on the hash sweep and take hybrid rows once their budgets are
-re-derived.  The second-to-last
+re-derived.  Phase 18's replicas launch ``row_totals`` in their own
+processes, fresh ones, and report their counts in ``/metricsz``
+(``kernels``); phase 18 sums them over the replicas after its routed
+traffic and must find launches.  The second-to-last
 lines are the kernels' JSON record and the card's name and power limit;
 the last line is the device record.
 """
@@ -1687,6 +1720,65 @@ def _same_partitions(a, b) -> bool:
                                     for x, y in zip(a, b))
 
 
+def _batch_a_solo_runs(state):
+    """Batch A's four jobs, each run alone on its bucket slab under its
+    own seed on the card, as ``[(rounds, served partitions)]``: phase
+    batch's runs when it ran with the same settings, else run here and
+    kept in ``state`` for the next phase."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.utils import prng
+
+    batch_cfg = _batch_cfg(state)
+    graphs = _batch_graphs("A")
+    solo_ref = state.get("batch_A_solo")
+    if solo_ref is None or solo_ref["cfg"] != batch_cfg:
+        det = get_detector("louvain")
+        runs = []
+        for (e, n), sd in zip(graphs, BATCH_SEEDS):
+            slab, bucket = bucketer.pad_to_bucket(e, n, device=DEVICE)
+            r = run_consensus(slab, det, ConsensusConfig(seed=sd,
+                                                         **batch_cfg),
+                              key=prng.key(sd, DEVICE),
+                              n_closure=bucket.n_closure)
+            runs.append((r.rounds, r.partitions))
+        solo_ref = state["batch_A_solo"] = {"cfg": batch_cfg, "runs": runs}
+    return [(r, _served_partitions(p, n))
+            for (r, p), (_, n) in zip(solo_ref["runs"], graphs)]
+
+
+def _delta_library_run(cfg, child_u, child_v, n: int, parent_partitions,
+                       adds, removes, incremental: bool, weights=None):
+    """A delta by the library path (``serve/delta.py`` + run_consensus)
+    on the card: the child's bucket slab and, under an incremental
+    decision, the parent's partitions as initial labels (each padding
+    node its own singleton) and the delta's neighbourhood as the active
+    mask.  Returns the run and the active share (None for a full run)."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.consensus import run_consensus
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import bucketer, delta
+
+    slab, bucket = bucketer.pad_to_bucket(np.stack([child_u, child_v], 1),
+                                          n, weights, device=DEVICE)
+    kw, share = {}, None
+    if incremental:
+        parts = np.asarray(parent_partitions, dtype=np.int32)
+        init = np.empty((parts.shape[0], slab.n_nodes), dtype=np.int32)
+        init[:, :n] = parts
+        init[:, n:] = np.arange(n, slab.n_nodes, dtype=np.int32)
+        act = np.zeros(slab.n_nodes, dtype=bool)
+        act[:n] = delta.neighborhood_mask(child_u, child_v, n, adds, removes)
+        kw = dict(init_labels=init, active_mask=act)
+        share = float(act[:n].mean())
+    run = run_consensus(slab, get_detector(cfg.algorithm), cfg,
+                        n_closure=bucket.n_closure, **kw)
+    return run, share
+
+
 def _job_line(name, job, prior=None) -> str:
     t = job.timing() or {}
     ph = t.get("phases_ms", {})
@@ -1789,6 +1881,9 @@ def _serve_part_b(state):
                                   max_rounds=64, seed=0)
             res = run_consensus(slab, get_detector(alg), cfg,
                                 n_closure=bucket.n_closure)
+            state.setdefault("bucketed_runs", {})[f"karate {alg}"] = (
+                cfg, res.rounds, _served_partitions(res.partitions,
+                                                    len(ids)))
             ref = root / f"library_{alg}"
             suffix = f"t{cfg.tau}_d{cfg.delta}_np{cfg.n_p}"
             write_partition_dirs(
@@ -1980,23 +2075,14 @@ def phase_serve(state):
     check(solo.result["rounds"] == lib.rounds and _same_partitions(
         solo.result["partitions"], _served_partitions(lib.partitions, n10k)),
         "serve: the solo job differs from run_consensus on its slab")
-    solo_ref = state.get("batch_A_solo")
-    if solo_ref is None or solo_ref["cfg"] != batch_cfg:
-        from fastconsensus_tpu_torch.utils import prng
-
-        solo_ref = {"cfg": batch_cfg, "runs": []}
-        for spec in batch_specs:
-            bslab, bb = bucketer.pad_to_bucket(spec.edges, spec.n_nodes,
-                                               device=DEVICE)
-            r = run_consensus(bslab, det, spec.config,
-                              key=prng.key(spec.config.seed, DEVICE),
-                              n_closure=bb.n_closure)
-            solo_ref["runs"].append((r.rounds, r.partitions))
-    for i, (j, (r_rounds, r_parts)) in enumerate(zip(batch,
-                                                     solo_ref["runs"])):
+    # phase fleet serves the same request and is held against this run
+    state.setdefault("bucketed_runs", {})["lfr10k"] = (
+        solo_cfg, lib.rounds, _served_partitions(lib.partitions, n10k))
+    from_batch = (state.get("batch_A_solo") or {}).get("cfg") == batch_cfg
+    for i, (j, (r_rounds, r_parts)) in enumerate(
+            zip(batch, _batch_a_solo_runs(state))):
         check(j.result["rounds"] == r_rounds and _same_partitions(
-            j.result["partitions"],
-            _served_partitions(r_parts, j.spec.n_nodes)),
+            j.result["partitions"], r_parts),
             f"serve: batch job {i} differs from its solo run")
     # the delta by the library path, with the server's decision
     pu = solo.result["graph"]["u"]
@@ -2006,22 +2092,16 @@ def phase_serve(state):
     cu, cv, cw = delta.apply_delta(pu, pv, None, n10k, a2, r2)
     check(np.array_equal(cu, child_u) and np.array_equal(cv, child_v),
           "serve: the child graph differs")
-    cslab, cb = bucketer.pad_to_bucket(np.stack([cu, cv], 1), n10k, cw,
-                                       device=DEVICE)
-    init = np.empty((n_p, cslab.n_nodes), dtype=np.int32)
-    init[:, :n10k] = np.stack(solo.result["partitions"])
-    init[:, n10k:] = np.arange(n10k, cslab.n_nodes, dtype=np.int32)
-    act = np.zeros(cslab.n_nodes, dtype=bool)
-    act[:n10k] = delta.neighborhood_mask(cu, cv, n10k, a2, r2)
-    inc = run_consensus(cslab, det, solo_cfg, n_closure=cb.n_closure,
-                        init_labels=init, active_mask=act)
+    inc, share = _delta_library_run(solo_cfg, cu, cv, n10k,
+                                    solo.result["partitions"], a2, r2,
+                                    incremental=True, weights=cw)
     check(dj.result["rounds"] == inc.rounds and _same_partitions(
         dj.result["partitions"], _served_partitions(inc.partitions, n10k)),
         "serve: the delta job differs from the library path")
     log(f"serve A: lfr10k == run_consensus on its bucket slab "
         f"({bucket.key()}); every batch job == its solo run"
-        f"{' (phase batch)' if 'batch_A_solo' in state else ''}; the delta "
-        f"== the library path (active share {act[:n10k].mean():.4f}); "
+        f"{' (phase batch)' if from_batch else ''}; the delta "
+        f"== the library path (active share {share:.4f}); "
         f"prior vs device: " + ", ".join(
             f"{j.spec.bucket().key()} {prior[j.job_id] * 1e3:.1f} ms / "
             f"{j.timing()['phases_ms']['device']:.1f} ms"
@@ -2031,6 +2111,388 @@ def phase_serve(state):
         launches=launches["row_totals"],
         by_shape=check_and_time_shapes(shapes, seed=7))
     _serve_part_b(state)
+
+
+def _fleet_job_line(name, res, key) -> str:
+    """One routed job: the replica that answered, its route key and the
+    replica's timing block (queue wait, device and total milliseconds)."""
+    t = res.get("timing") or {}
+    ph = t.get("phases_ms", {})
+    wait = sum(ph.get(k, 0.0) for k in ("queue_wait", "hold", "dispatch",
+                                         "deque_wait"))
+    return (f"  {name}: replica {res.get('fleet_replica')}, route key "
+            f"{key}; bucket {(res.get('bucket') or {}).get('key')}, rounds "
+            f"{res.get('rounds')}, cached {res.get('cached')}, compiles "
+            f"{res.get('compiles')}; queue wait {wait:.1f} ms, device "
+            f"{ph.get('device', 0.0):.1f} ms, total "
+            f"{t.get('e2e_ms', 0.0):.1f} ms")
+
+
+def phase_fleet(state):
+    """The fleet tier on the card: two ``python -m
+    fastconsensus_tpu_torch.serve`` replicas sharing the card behind the
+    router (serve/router.py, serve/fleet.py), both in this process."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.cli import DEFAULT_TAU
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import counters as obs_counters
+    from fastconsensus_tpu_torch.obs import postmortem
+    from fastconsensus_tpu_torch.obs.fleettrace import (REPLICA_SEP,
+                                                        proxy_overhead)
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.serve.cache import ResultCache
+    from fastconsensus_tpu_torch.serve.client import ServeClient
+    from fastconsensus_tpu_torch.serve.fleet import FleetManager
+    from fastconsensus_tpu_torch.serve.jobs import canonical_edges
+    from fastconsensus_tpu_torch.serve.router import route_key
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+    t_phase = time.perf_counter()
+    root = OUT / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()   # this process's cached blocks
+    n_p = state.get("fleet_n_p", 20)
+    rounds = state.get("fleet_rounds", 16)
+    reg = obs_counters.get_registry()
+    base = reg.counters()
+    # The replicas admit without shedding and warm joiners cheaply: the
+    # cost prior is the reference's CPU envelope (phase serve), which
+    # would shed batch A at submit, and a joiner's prewarm probes only
+    # need to touch its buckets (n_p 4, 2 rounds).
+    fleet = FleetManager(str(root), cache_spill_s=1.0, replica_args=(
+        "--max-batch", "4", "--device", DEVICE, "--no-shed",
+        "--warm-config", json.dumps({"n_p": 4, "max_rounds": 2})))
+    env = {"PYTHONPATH": str(ROOT)}
+    drain = "fastconsensus_tpu_torch.serve.cache:ResultCache.spill:OSError"
+    try:
+        spawn_s = {}
+
+        def spawn(name):
+            t0 = time.perf_counter()
+            fleet.spawn(name, env_extra=env)
+            spawn_s[name] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=spawn, args=(n,))
+                   for n in ("r0", "r1")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(sorted(fleet.replicas) == ["r0", "r1"],
+              f"fleet: spawn failed ({sorted(fleet.replicas)}); see "
+              f"{root}/*.log")
+        url = fleet.start_router()
+        client = ServeClient(url, timeout=60.0)
+        log(f"fleet: r0 healthy in {spawn_s['r0']:.2f}s, r1 in "
+            f"{spawn_s['r1']:.2f}s (spawned together, sharing {DEVICE}); "
+            f"router at {url}")
+
+        # -- routed traffic --------------------------------------------
+        kedges, _, kids = read_edgelist(str(ROOT / "examples" /
+                                            "karate_club.txt"))
+        jobs = {}      # name -> (payload, submit answer, result)
+
+        def submit(name, payload):
+            jobs[name] = [payload, client.submit(**payload), None]
+
+        def wait(name):
+            jobs[name][2] = client.wait(jobs[name][1]["job_id"],
+                                        timeout=600)
+            return jobs[name][2]
+
+        for alg in ("louvain", "lpm"):
+            submit(f"karate {alg}", dict(
+                edges=kedges.tolist(), n_nodes=len(kids), algorithm=alg,
+                n_p=20, tau=DEFAULT_TAU[alg], delta=0.02, max_rounds=64,
+                seed=0))
+        data = np.load(ROOT / "bench_data" / "lfr10k.npz")
+        n10k = int(data["labels"].shape[0])
+        u, v, _ = canonical_edges(data["edges"], n10k)
+        solo_kw = dict(n_p=n_p, tau=0.2, delta=0.02, seed=0,
+                       max_rounds=rounds)
+        batch_cfg = _batch_cfg(state)
+        graphs = _batch_graphs("A")
+        batch_payloads = [dict(edges=e.tolist(), n_nodes=n, seed=s,
+                               algorithm="louvain", **batch_cfg)
+                          for (e, n), s in zip(graphs, BATCH_SEEDS)]
+        lfr_payload = dict(edges=np.stack([u, v], 1).tolist(),
+                           n_nodes=n10k, algorithm="louvain", **solo_kw)
+        ring = fleet.router.ring
+        home_a = ring.route(route_key(batch_payloads[0]))
+        check(len({route_key(p) for p in batch_payloads}) == 1,
+              "fleet: batch A's jobs have different route keys")
+        # batch A must queue behind a running job of its home replica to
+        # coalesce (phase serve queues it behind the lfr10k job): the
+        # lfr10k job when both groups share a home, else a fifth job of
+        # batch A's group
+        blocker = "lfr10k"
+        if ring.route(route_key(lfr_payload)) != home_a:
+            blocker = "batch A blocker"
+            submit(blocker, dict(batch_payloads[0], seed=55))
+        submit("lfr10k", lfr_payload)
+        _wait_for("fleet: the blocking job starts", lambda: client.status(
+            jobs[blocker][1]["job_id"])["state"] != "queued", timeout=120)
+        burst = [threading.Thread(target=submit, args=(f"batch A {i}", p))
+                 for i, p in enumerate(batch_payloads)]
+        for t in burst:
+            t.start()
+        for t in burst:
+            t.join()
+        check(client.status(jobs[blocker][1]["job_id"])["state"] ==
+              "running", "fleet: the blocking job finished before batch A "
+                         "was queued")
+        for name in list(jobs):
+            wait(name)
+        lfr = jobs["lfr10k"]
+        child_u, child_v, adds, removes = _delta_child(u, v, n10k, 0.01,
+                                                       seed=1)
+        before = reg.counters()
+        jobs["delta"] = [None, client.submit_delta(
+            lfr[1]["content_hash"], adds=adds, removes=removes), None]
+        dres = wait("delta")
+        prefetched = reg.counters_since(before).get(
+            "serve.fleet.delta_parent_prefetch", 0)
+        d_info = dres["delta"]
+        log(f"fleet: delta {d_info['n_adds']} adds / {d_info['n_removes']} "
+            f"removes against the lfr10k job on {lfr[2]['fleet_replica']}: "
+            f"policy decision {d_info['mode']} ({d_info.get('reason')}), "
+            f"served by {dres['fleet_replica']}; parent fetched across "
+            f"replicas: {'yes' if prefetched else 'no'} "
+            f"(serve.fleet.delta_parent_prefetch +{prefetched})")
+        keys = {name: (f"delta|{lfr[1]['content_hash']}"
+                       if name == "delta" else route_key(j[0]))
+                for name, j in jobs.items()}
+        log("fleet: routed jobs (replica, route key, timing):")
+        for name, (_, _, res) in jobs.items():
+            log(_fleet_job_line(name, res, keys[name]))
+        status = [client.status(jobs[f"batch A {i}"][1]["job_id"])
+                  for i in range(4)]
+        check(len({s["batch_id"] for s in status}) == 1 and
+              None not in {s["batch_id"] for s in status} and
+              all(s["batch_size"] == 4 for s in status) and
+              {jobs[f"batch A {i}"][2]["fleet_replica"]
+               for i in range(4)} == {home_a},
+              f"fleet: batch A did not coalesce into one rung-4 batch on "
+              f"{home_a}: "
+              f"{[(s['batch_id'], s['batch_size']) for s in status]}")
+        replica_m = {n: ServeClient(r.base_url).metricsz()
+                     for n, r in fleet.replicas.items()}
+        coalesced = replica_m[home_a]["fcobs"]["counters"].get(
+            "serve.batch.coalesced", 0)
+        check(coalesced >= 1, f"fleet: {home_a} counted no coalesced batch")
+        for name, m in replica_m.items():
+            c = m["fcobs"]["counters"]
+            check(c.get("serve.xla_compiles", 0) == 0,
+                  f"fleet: {name} built kernels "
+                  f"({c.get('serve.xla_compiles')})")
+            mem = {d: s.get("memory") for d, s in m["devices"].items()}
+            log(f"fleet: {name}: jobs completed "
+                f"{c.get('serve.jobs.completed', 0)}, builds 0, device "
+                f"memory {mem}")
+        # row_totals launches inside the replicas (each counts its own
+        # since it started: the counts were 0 before this traffic); on the
+        # CPU the wrapper runs the plain version and launches nothing
+        launches, shapes = 0, {}
+        for m in replica_m.values():
+            launches += m["kernels"]["launches"]["row_totals"]
+            for r, d, k in m["kernels"]["row_totals_shapes"]:
+                shapes[(r, d)] = shapes.get((r, d), 0) + k
+        log(f"fleet: row_totals launches in the replicas {launches} "
+            f"row_totals_launches_by_shape={sorted(shapes.items())}")
+        if DEVICE == "cuda":
+            check(launches > 0, "fleet: no replica launched row_totals")
+            state.setdefault("main_paths", {})["fleet"] = dict(
+                launches=launches,
+                by_shape=check_and_time_shapes(shapes, seed=8))
+        log(f"fleet: batch A on {home_a}: one rung-4 batch "
+            f"{status[0]['batch_id']}, serve.batch.coalesced {coalesced}; "
+            f"blocked behind the {blocker} job")
+        if DEVICE == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            log(f"fleet: card memory in use with both replicas up "
+                f"{total - free} of {total} bytes (this process reserves "
+                f"{torch.cuda.memory_reserved()})")
+        fz = client._request("/fleetz")
+        over = proxy_overhead((fz.get("router") or {}).get("latency"))
+        log("fleet: router proxy overhead per replica " + ", ".join(
+            f"{n}: {o['count']} hops, p50 {o['p50_s'] * 1e3:.3f} ms, "
+            f"p95 {o['p95_s'] * 1e3:.3f} ms" for n, o in sorted(over.items())))
+
+        # -- kill and inherit ------------------------------------------
+        victim = jobs["karate louvain"][2]["fleet_replica"]
+        held = [j[1]["content_hash"] for j in jobs.values()
+                if j[2]["fleet_replica"] == victim]
+
+        def spilled():
+            c = ResultCache(max_entries=1024, ttl_seconds=3600.0)
+            path = fleet.replicas[victim].cache_path
+            return (os.path.exists(path) and c.load(path) > 0 and
+                    set(held) <= set(c.keys()))
+
+        _wait_for("fleet: the victim's cache spill", spilled, timeout=30)
+        fleet.snapshot_bundles()   # every replica's flight, the victim's too
+        t_kill = time.perf_counter()
+        fleet.kill(victim, graceful=False)
+        heir = fleet.on_death(victim)
+        t_sub = time.perf_counter()
+        again = client.submit(**jobs["karate louvain"][0])
+        hit = client.wait(again["job_id"], timeout=60)
+        answer_ms = (time.perf_counter() - t_sub) * 1e3
+        kill_s = time.perf_counter() - t_kill
+        since = reg.counters_since(base)
+        check(again["cached"] and again["fleet_replica"] == heir and
+              hit["partitions"] == jobs["karate louvain"][2]["partitions"]
+              and hit["compiles"] == 0,
+              f"fleet: the resubmit after the kill was not a cache hit on "
+              f"{heir}: {again}")
+        check(since.get("serve.fleet.cache_inherited", 0) >= 1 and
+              since.get("serve.fleet.rehomed_buckets", 0) >= 1,
+              f"fleet: counters after the kill {since}")
+        log(f"fleet: SIGKILL {victim}, on_death -> {heir} inherited "
+            f"{since['serve.fleet.cache_inherited']} cached result(s), "
+            f"{since['serve.fleet.rehomed_buckets']} group(s) re-homed; the "
+            f"karate louvain resubmit answered from {heir}'s cache at submit "
+            f"(same bytes, compiles 0) in {answer_ms:.1f} ms (submit and "
+            f"result through the router), {kill_s:.3f}s after the kill")
+
+        # -- join ----------------------------------------------------------
+        t0 = time.perf_counter()
+        before = reg.counters()
+        # r2 alone exports its fcobs trace at drain: its final counters
+        # line is where the armed spill fault must be counted
+        r2_trace = root / "r2_trace"
+        fleet.replica_args += ("--trace-dir", str(r2_trace))
+        fleet.add_replica("r2", env_extra=dict(
+            env, FCTPU_FAULT_INJECT=drain, FCTPU_FAULT_INJECT_COUNT="1"))
+        join_s = time.perf_counter() - t0
+        shipped = reg.counters_since(before)
+        check(shipped.get("serve.fleet.prewarm_shipped", 0) >= 1,
+              "fleet: the joiner was not prewarmed by prewarm shipping")
+        m2 = ServeClient(fleet.replicas["r2"].base_url).metricsz()
+        c2 = m2["fcobs"]["counters"]
+        check(c2.get("serve.xla_compiles", 0) == 0 and
+              c2.get("serve.prewarm.compiles", 0) == 0,
+              f"fleet: the joiner built kernels {c2}")
+        log(f"fleet: r2 joined in {join_s:.2f}s, warm "
+            f"{fleet.replicas['r2'].warm}, "
+            f"{shipped.get('serve.fleet.cache_shipped', 0)} cached result(s) "
+            f"shipped; armed with {drain} (count 1)")
+        answered = {}
+        for name, (payload, sub, res) in jobs.items():
+            if name == "delta":
+                sub2 = client.submit_delta(lfr[1]["content_hash"], adds=adds,
+                                           removes=removes)
+            else:
+                sub2 = client.submit(**payload)
+            res2 = client.wait(sub2["job_id"], timeout=60)
+            check(sub2["cached"] and res2["partitions"] == res["partitions"],
+                  f"fleet: the resubmit of {name} after the join was not a "
+                  f"cache hit with the same bytes: {sub2}")
+            answered[name] = sub2["fleet_replica"]
+        log(f"fleet: every job resubmitted after the join answered from a "
+            f"cache with the same bytes: {answered}")
+
+        # -- bundles ----------------------------------------------------
+        collected = root / "collected"
+        bundles = fleet.collect_bundles(str(collected))
+        check(bundles.get(victim), f"fleet: no bundle of the killed {victim}")
+        mine = postmortem.write_bundle("fleet", base_dir=str(root / "router"))
+        shutil.copytree(mine, collected / f"router{REPLICA_SEP}"
+                                          f"{os.path.basename(mine)}")
+        trace = lfr[1]["trace"]
+        render = subprocess.run(
+            [sys.executable, "-m", "fastconsensus_tpu_torch.obs.fleettrace",
+             "render", str(collected), "--trace", trace, "--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, **env))
+        check(render.returncode == 0, f"fleet: fleettrace render exit "
+                                      f"{render.returncode}: {render.stderr}")
+        tl = json.loads(render.stdout)
+        tracks = set(tl["replicas"])
+        check("router" in tracks and tracks & set(fleet.replicas),
+              f"fleet: the lfr10k trace {trace} is not on the router's and "
+              f"a replica's track: {tl['events_per_replica']}")
+        log(f"fleet: collected {sum(len(b) for b in bundles.values())} "
+            f"replica bundles {({n: len(b) for n, b in bundles.items()})} "
+            f"and the router's; fleettrace render --trace {trace}: "
+            f"{tl['n_events']} events on {tl['events_per_replica']}")
+    finally:
+        # -- drill and drain ------------------------------------------
+        t0 = time.perf_counter()
+        codes = fleet.stop_all(graceful=True)
+        drain_s = time.perf_counter() - t0
+    live = {n: c for n, c in codes.items() if n != victim}
+    check(all(c == 0 for c in live.values()),
+          f"fleet: a replica did not drain cleanly: {codes}")
+    r2_log = (root / "r2.log").read_text()
+    check("fcfault: injecting OSError" in r2_log and
+          "cache spill failed; draining anyway" in r2_log,
+          f"fleet: the armed drain-time spill fault did not fire: "
+          f"{r2_log[-2000:]}")
+    lines = (r2_trace / "fcserve_trace.json.jsonl").read_text().splitlines()
+    final = [rec for rec in map(json.loads, lines)
+             if rec.get("kind") == "counters"][-1]["counters"]
+    failed = final.get("serve.cache.persist_write_failed", 0)
+    check(failed >= 1, f"fleet: r2 did not count the injected spill fault: "
+                       f"{final}")
+    log(f"fleet: drained in {drain_s:.2f}s, exit codes {codes}; r2 absorbed "
+        f"the injected spill OSError (logged; its drain-time counters show "
+        f"serve.cache.persist_write_failed {failed}) and exited 0")
+    for spill in root.glob("*_cache.npz"):   # MBs each, checked above
+        spill.unlink()
+
+    # -- each routed result against the library on this card ------------
+    # phase serve's bucketed library runs of the same requests, when it
+    # ran with the same settings; else run them here
+    bucketed = state.get("bucketed_runs", {})
+    reused = []
+
+    def library(name, edges, n, cfg):
+        if name in bucketed and bucketed[name][0] == cfg:
+            reused.append(name)
+            return bucketed[name][1:]
+        slab, bucket = bucketer.pad_to_bucket(edges, n, device=DEVICE)
+        r = run_consensus(slab, get_detector(cfg.algorithm), cfg,
+                          n_closure=bucket.n_closure)
+        return r.rounds, _served_partitions(r.partitions, n)
+
+    solo_cfg = ConsensusConfig(**solo_kw)
+    for name, edges, n, cfg in [
+            (f"karate {alg}", kedges, len(kids), ConsensusConfig(
+                algorithm=alg, n_p=20, tau=DEFAULT_TAU[alg], delta=0.02,
+                max_rounds=64, seed=0)) for alg in ("louvain", "lpm")] + [
+            ("lfr10k", np.stack([u, v], 1), n10k, solo_cfg)]:
+        lib_rounds, lib_parts = library(name, edges, n, cfg)
+        check(jobs[name][2]["rounds"] == lib_rounds and _same_partitions(
+            jobs[name][2]["partitions"], lib_parts),
+            f"fleet: {name} differs from its bucketed library run")
+    from_batch = (state.get("batch_A_solo") or {}).get("cfg") == batch_cfg
+    for i, (r_rounds, r_parts) in enumerate(_batch_a_solo_runs(state)):
+        res = jobs[f"batch A {i}"][2]
+        check(res["rounds"] == r_rounds and _same_partitions(
+            res["partitions"], r_parts),
+            f"fleet: batch A job {i} differs from its solo run")
+    dlib, _ = _delta_library_run(solo_cfg, child_u, child_v, n10k,
+                                 lfr[2]["partitions"], adds, removes,
+                                 incremental=d_info["mode"] == "incremental")
+    check(dres["rounds"] == dlib.rounds and _same_partitions(
+        dres["partitions"], _served_partitions(dlib.partitions, n10k)),
+        f"fleet: the delta ({d_info['mode']}) differs from the library path")
+    log(f"fleet: karate louvain/lpm, lfr10k, batch A x4 and the delta "
+        f"({d_info['mode']}) each == the library on {DEVICE} (pad_to_bucket "
+        f"+ run_consensus; batch jobs == their solo runs; reused from "
+        f"phases serve and batch: {reused}"
+        f"{' and batch A' if from_batch else ''})")
+    wall = time.perf_counter() - t_phase
+    log(f"fleet: phase wall {wall:.2f}s")
 
 
 def phase_profile(state):
@@ -2152,7 +2614,8 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "cnm_emaileu": phase_cnm_emaileu,
           "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume,
           "recovery": phase_recovery, "trace": phase_trace,
-          "delta": phase_delta, "batch": phase_batch, "serve": phase_serve}
+          "delta": phase_delta, "batch": phase_batch, "serve": phase_serve,
+          "fleet": phase_fleet}
 EXTRA_PHASES = {"profile": phase_profile}
 
 

@@ -5,11 +5,15 @@ reference's ``fastconsensus_tpu/analysis``:
   builds the port really runs (an ``nvcc`` build of a CUDA kernel, the
   ``g++`` build of the host C++ library) on the thread that runs them;
 * **analysis/cost.py** — the torch-free cost mirror the serving tier's
-  shaper and scheduler take their cold-start priors from.
+  shaper and scheduler take their cold-start priors from;
+* **analysis/footprint.py** — the torch-free definition of the bucket
+  ladder's geometry (``grid_up``, the class floors, the batch rungs),
+  which ``sizing``, the bucketer and the fleet router's route keys all
+  import.  The rest of the reference's footprint pass, the device-memory
+  model behind ``--hbm-bytes``, is not ported yet.
 
 The static passes of the reference (AST lint, the jaxpr audit, the
-footprint and concurrency models, fault flow, name contracts) are not
-ported.
+concurrency models, fault flow, name contracts) are not ported.
 """
 
 __all__ = ["CompileGuard", "RecompileError", "assert_max_compiles"]

@@ -23,9 +23,9 @@ import dataclasses
 import re
 from typing import Dict, Optional, Tuple
 
-# models/louvain.py MATMUL_MAX_N: the matmul/hash detection-path flip the
-# mirror's regimes split at
-MATMUL_MAX_N = 1024
+# MATMUL_MAX_N: the matmul/hash detection-path flip the mirror's regimes
+# split at
+from fastconsensus_tpu_torch.analysis.footprint import MATMUL_MAX_N
 
 # The reference's effective envelope of its CPU CI host (sustained
 # FLOP/s, bytes/s, per-executable dispatch cost).

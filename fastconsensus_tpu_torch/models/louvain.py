@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from fastconsensus_tpu_torch.analysis import footprint
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
 from fastconsensus_tpu_torch.ops import dense_adj as da
@@ -54,7 +55,7 @@ from fastconsensus_tpu_torch.utils.env import env_int
 _JITTER_REL = 0.25
 _MARGIN_REL = 0.5
 
-MATMUL_MAX_N = 1024
+MATMUL_MAX_N = footprint.MATMUL_MAX_N
 DENSE_OVER_HASH = 8
 
 NEG_INF = float("-inf")

@@ -1,6 +1,7 @@
 """fcserve on the port: the request-serving layer over the consensus
-engine, counterpart of ``fastconsensus_tpu/serve`` (one replica; the
-fleet router and the mesh-sharded huge tier are not ported yet).
+engine, counterpart of ``fastconsensus_tpu/serve`` (one replica and the
+fleet of replicas behind a router; the mesh-sharded huge tier is not
+ported yet).
 
 * **serve/bucketer.py** — shape buckets: graphs pad onto a small
   ``{2^k, 3*2^k}`` ladder of (n_nodes, n_edges) classes with every
@@ -20,17 +21,27 @@ fleet router and the mesh-sharded huge tier are not ported yet).
   ``/healthz``, ``/metricsz``, ``/debugz/*``, ``/cachez``).
 * **serve/delta.py** — fcdelta: incremental re-consensus of a cached
   parent's child graph.
-* **serve/client.py** — stdlib urllib client (``cli.py --server``),
-  importing neither torch nor jax.
+* **serve/client.py** — stdlib urllib client (``cli.py --server``) with
+  the typed replica and fleet blocks, importing neither torch nor jax.
+* **serve/router.py** — fcfleet: the consistent-hash router over N
+  replicas (``route_key``, ``HashRing``, ``FleetRouter``: cordon and
+  re-home, fleet-wide backpressure, cross-replica cache reuse, the
+  ``/fleetz`` merge), torch-free.
+* **serve/fleet.py** — ``FleetManager``: spawns ``python -m
+  fastconsensus_tpu_torch.serve`` replicas, death inheritance, prewarm
+  shipping, bundle collection; torch-free.
 
 Run one: ``python -m fastconsensus_tpu_torch.serve --port 8765``
-(``--device cpu`` without a GPU); SIGTERM drains gracefully.
+(``--device cpu`` without a GPU); SIGTERM drains gracefully.  Run a
+fleet: ``python -m fastconsensus_tpu_torch.serve.fleet --replicas 2``
+(``--replica-arg=--device --replica-arg=cpu`` without a GPU).
 """
 
 # Lazy re-exports (PEP 562), as the package root: importing
 # fastconsensus_tpu_torch.serve.client (the thin-client path, cli.py
-# --server) must stay torch-free, and eager submodule imports here would
-# pull bucketer -> graph -> torch into every client process.
+# --server) or the fleet tier (router, fleet) must stay torch-free, and
+# eager submodule imports here would pull bucketer -> graph -> torch into
+# every client and router process.
 _EXPORTS = {
     "Bucket": "bucketer", "BucketTooLarge": "bucketer",
     "bucket_for": "bucketer", "pad_to_bucket": "bucketer",
@@ -44,6 +55,8 @@ _EXPORTS = {
     "ServeConfig": "server", "make_http_server": "server",
     "DeviceWorker": "pool", "WorkerPool": "pool",
     "NoEligibleWorker": "scheduler", "StickyScheduler": "scheduler",
+    "FleetRouter": "router", "HashRing": "router", "route_key": "router",
+    "FleetManager": "fleet",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -29,17 +29,15 @@ from typing import Optional, Tuple
 import numpy as np
 
 from fastconsensus_tpu_torch import sizing
+from fastconsensus_tpu_torch.analysis import footprint
 from fastconsensus_tpu_torch.graph import (GraphSlab, derive_agg_sizing,
                                            pack_edges)
 
-# Floors keep tiny graphs (karate-sized probes) in one bucket.
-MIN_NODE_CLASS = 64
-MIN_EDGE_CLASS = 64
-
-# Batch widths a server coalesces same-bucket jobs into (B = 1 is the
-# solo path); powers of two cap the split overhead at one extra
-# sub-batch per burst.
-BATCH_LADDER = (1, 2, 4, 8)
+# The ladder's class floors and batch rungs, defined once in the
+# torch-free analysis/footprint.py the fleet router routes on.
+MIN_NODE_CLASS = footprint.MIN_NODE_CLASS
+MIN_EDGE_CLASS = footprint.MIN_EDGE_CLASS
+BATCH_LADDER = footprint.BATCH_RUNGS
 
 
 def batch_rung(n: int) -> int:

@@ -1,12 +1,14 @@
 """fcserve client: a stdlib (urllib) wrapper over the HTTP endpoints.
 
-The port's own copy of ``fastconsensus_tpu/serve/client.py`` (the
-replica half; the fleet router's typed blocks come with the fleet tier).
-It reads a replica of either package: the payloads are the same.
-Deliberately torch-free, jax-free and numpy-optional at import time, so
-a thin front-end process (``cli.py --server``) can submit work without
-paying the engine's import cost — the whole point of keeping one warm serving
-process is that *clients* stay cheap.
+The port's own copy of ``fastconsensus_tpu/serve/client.py``: the
+replica's typed blocks and the fleet router's (:class:`ReplicaState`,
+:class:`FleetStats`, :class:`FleetLatency`, :class:`TraceTimeline`,
+``ServeClient.fleet`` / ``fleetz``).  It reads a replica or a router of
+either package: the payloads are the same.
+Deliberately torch-free, jax-free and numpy-optional at import time,
+so a thin front-end process (``cli.py --server``) can submit work
+without paying the engine's import cost — the whole point of keeping
+one warm serving process is that *clients* stay cheap.
 
 Backpressure is surfaced as a typed exception (:class:`Backpressure`,
 HTTP 429) rather than a generic error: callers are expected to catch it
@@ -305,6 +307,190 @@ class SlowJobExemplar:
                    else JobTiming.from_payload(t))
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicaState:
+    """One replica's row in the fcfleet router's ``/healthz`` /
+    ``/metricsz`` fleet block (serve/router.py), typed: where the
+    replica lives, whether the router routes to it (``state`` is
+    ``"up"`` or ``"cordoned"``, with the cordon reason when set), the
+    last polled queue depth pair the saturation routing reads, and the
+    replica's own health self-reports (draining flag, watchdog trip
+    count, freshest flight-bundle path) as the router last saw them."""
+
+    name: str
+    url: str
+    state: str
+    cordon_reason: Optional[str]
+    poll_failures: int
+    queue_depth: int
+    queue_max_depth: int
+    draining: bool
+    watchdog_trips: Optional[int]
+    retry_after_hint_s: Optional[float]
+    last_bundle: Optional[str]
+    # route keys this replica owned when it was cordoned (empty while
+    # up): the frozen snapshot successor election reads, surfaced so a
+    # post-mortem can see exactly which groups a dead replica donated
+    rehomed_keys: Tuple[str, ...] = ()
+
+    @property
+    def cordoned(self) -> bool:
+        return self.state == "cordoned"
+
+    @classmethod
+    def from_payload(cls, r: Dict[str, Any]) -> "ReplicaState":
+        trips = r.get("watchdog_trips")
+        hint = r.get("retry_after_hint_s")
+        return cls(name=str(r["name"]), url=str(r["url"]),
+                   state=str(r["state"]),
+                   cordon_reason=r.get("cordon_reason"),
+                   poll_failures=int(r.get("poll_failures", 0)),
+                   queue_depth=int(r.get("queue_depth", 0)),
+                   queue_max_depth=int(r.get("queue_max_depth", 0)),
+                   draining=bool(r.get("draining", False)),
+                   watchdog_trips=None if trips is None else int(trips),
+                   retry_after_hint_s=None if hint is None
+                   else float(hint),
+                   last_bundle=r.get("last_bundle"),
+                   rehomed_keys=tuple(
+                       str(k) for k in r.get("rehomed_keys") or ()))
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetStats:
+    """The fcfleet router's fleet block, typed: per-replica states,
+    the consistent-hash ring membership, the route-key -> replica
+    assignment table the re-home accounting runs on, in-flight router
+    bookkeeping, and the ``serve.fleet.*`` counters (cordons /
+    re-homed groups / replays / cross-replica cache traffic)."""
+
+    replicas: Tuple[ReplicaState, ...]
+    ring_members: Tuple[str, ...]
+    vnodes: int
+    assignments: Dict[str, str]
+    jobs_tracked: int
+    jobs_in_flight: int
+    content_hash_index: int
+    counters: Dict[str, int]
+
+    @property
+    def up(self) -> Tuple[ReplicaState, ...]:
+        return tuple(r for r in self.replicas if r.state == "up")
+
+    @classmethod
+    def from_payload(cls, f: Dict[str, Any]) -> "FleetStats":
+        ring = f.get("ring") or {}
+        return cls(replicas=tuple(ReplicaState.from_payload(r)
+                                  for r in f.get("replicas") or ()),
+                   ring_members=tuple(str(m) for m in
+                                      ring.get("members") or ()),
+                   vnodes=int(ring.get("vnodes", 0)),
+                   assignments={str(k): str(v) for k, v in
+                                (f.get("assignments") or {}).items()},
+                   jobs_tracked=int(f.get("jobs_tracked", 0)),
+                   jobs_in_flight=int(f.get("jobs_in_flight", 0)),
+                   content_hash_index=int(
+                       f.get("content_hash_index", 0)),
+                   counters={str(k): int(v) for k, v in
+                             (f.get("counters") or {}).items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetLatency:
+    """The fcfleet router's ``GET /fleetz`` aggregate
+    (obs/fleettrace.py fctrace), typed: the exact-merged fleet-wide
+    fclat histograms (``histograms`` — merged bucket-by-bucket on the
+    fixed buckets of obs/latency.py, so quantiles are bit-identical to
+    a single registry having observed every sample), per-class SLO
+    attainment summed across replicas, summed fcobs counters, the
+    router's own ``router.phase.*`` histograms, and the per-replica
+    proxy-overhead attribution.  ``replicas_ok`` records which
+    replicas answered the scrape — an unreachable replica appears as
+    False, never silently vanishes from the aggregate."""
+
+    scope: str
+    replicas_ok: Dict[str, bool]
+    histograms: Tuple[PhaseLatency, ...]
+    slo: Tuple[SloStats, ...]
+    counters: Dict[str, int]
+    router_histograms: Tuple[PhaseLatency, ...]
+    proxy_overhead: Dict[str, Dict[str, float]]
+
+    @property
+    def replicas_down(self) -> Tuple[str, ...]:
+        return tuple(sorted(n for n, ok in self.replicas_ok.items()
+                            if not ok))
+
+    def histogram(self, name: str, **tags: str) -> Optional[PhaseLatency]:
+        """The merged fleet histogram for one (name, tags) pair."""
+        want = {str(k): str(v) for k, v in tags.items()}
+        for h in self.histograms:
+            if h.name == name and h.tags == want:
+                return h
+        return None
+
+    @classmethod
+    def from_payload(cls, p: Dict[str, Any]) -> "FleetLatency":
+        lat = p.get("latency") or {}
+        router = p.get("router") or {}
+        rlat = router.get("latency") or {}
+        return cls(
+            scope=str(p.get("scope", "fleet")),
+            replicas_ok={str(k): bool((v or {}).get("ok", False))
+                         for k, v in (p.get("replicas") or {}).items()},
+            histograms=tuple(PhaseLatency.from_payload(h)
+                             for h in lat.get("histograms") or ()),
+            slo=tuple(SloStats.from_payload(name, s)
+                      for name, s in sorted((p.get("slo") or {}).items())),
+            counters={str(k): int(v) for k, v in
+                      (p.get("counters") or {}).items()},
+            router_histograms=tuple(PhaseLatency.from_payload(h)
+                                    for h in rlat.get("histograms") or ()),
+            proxy_overhead={
+                str(k): {str(a): float(b) for a, b in (v or {}).items()
+                         if b is not None}
+                for k, v in (router.get("proxy_overhead") or {}).items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceTimeline:
+    """A fleettrace merged incident timeline (the ``fctrace-timeline``
+    JSON emitted by ``python -m fastconsensus_tpu_torch.obs.fleettrace
+    render --json``), typed: the clock-aligned, replica-tagged event stream
+    merged from every collected bundle — each event carries its source
+    ``replica`` and a wall-clock ``t_wall`` (events are sorted on it),
+    plus its original flight fields (ts/kind/thread/job/trace/aux).
+    ``trace`` echoes the trace-id filter the render ran with (None for
+    an unfiltered fleet timeline)."""
+
+    trace: Optional[str]
+    replicas: Tuple[str, ...]
+    n_events: int
+    events_per_replica: Dict[str, int]
+    skipped_bundles: Tuple[str, ...]
+    events: Tuple[Dict[str, Any], ...]
+    schema: int = 1
+    tool: str = "fctrace-timeline"
+
+    def for_replica(self, name: str) -> Tuple[Dict[str, Any], ...]:
+        return tuple(e for e in self.events if e.get("replica") == name)
+
+    @classmethod
+    def from_payload(cls, p: Dict[str, Any]) -> "TraceTimeline":
+        t = p.get("trace")
+        return cls(schema=int(p.get("schema", 1)),
+                   tool=str(p.get("tool", "fctrace-timeline")),
+                   trace=None if t is None else str(t),
+                   replicas=tuple(str(r) for r in p.get("replicas") or ()),
+                   n_events=int(p.get("n_events", 0)),
+                   events_per_replica={
+                       str(k): int(v) for k, v in
+                       (p.get("events_per_replica") or {}).items()},
+                   skipped_bundles=tuple(
+                       str(b) for b in p.get("skipped_bundles") or ()),
+                   events=tuple(dict(e) for e in p.get("events") or ()))
+
+
 # What Backpressure.retry_after_s reports when the server sent no (or a
 # malformed) Retry-After — the pre-fcshape constant, kept as the
 # honest "we know nothing" floor.
@@ -563,6 +749,20 @@ class ServeClient:
             "queue_coalesced_pops": counters.get(
                 "serve.queue.coalesced_pops", 0),
         }
+
+    def fleet(self) -> Optional[FleetStats]:
+        """The fcfleet block, typed, when ``base_url`` points at a
+        router (serve/router.py) — None against a plain replica, so a
+        caller can probe what it is talking to."""
+        f = self.healthz().get("fleet")
+        return None if f is None else FleetStats.from_payload(f)
+
+    def fleetz(self) -> FleetLatency:
+        """The router's fleet-wide latency aggregate (``GET /fleetz``),
+        typed — exact-merged histograms, summed SLO/counters, router
+        phase histograms, per-replica proxy overhead.  Raises
+        :class:`ServeError` (404) against a plain replica."""
+        return FleetLatency.from_payload(self._request("/fleetz"))
 
     def flight(self) -> Dict[str, Any]:
         """The server's raw fcflight ring snapshot

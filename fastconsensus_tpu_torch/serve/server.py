@@ -1488,6 +1488,21 @@ class ConsensusService:
             "last_bundle": last_bundle,
         }
 
+    def kernel_stats(self) -> Dict[str, Any]:
+        """This process's kernel launches since it started (the counters
+        of ``ops/row_kernels.py``, process-scoped like every /metricsz
+        counter): a launch inside a replica is invisible to the process
+        that sent it the job, so a fleet reads them here per replica."""
+        from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+        # one C-level copy of each: a worker adds shapes while a job runs,
+        # and a Python loop over the live dict would race it
+        launches = dict(rk.LAUNCHES)
+        shapes = list(rk.ROW_TOTALS_SHAPES.items())
+        return {"launches": launches,
+                "row_totals_shapes": sorted([r, d, n]
+                                            for (r, d), n in shapes)}
+
     def device_stats(self) -> Dict[str, Dict[str, Any]]:
         """Per-device breakdown for ``/metricsz``: jobs, batches,
         busy-fraction from the pool's own (service-scoped) bookkeeping,
@@ -1496,7 +1511,8 @@ class ConsensusService:
         counters = self._reg.counters()
         uptime = max(time.time() - self._started_at, 1e-9)
         out: Dict[str, Dict[str, Any]] = {}
-        for w in (self.pool.describe() if self.pool is not None else []):
+        for worker in (self.pool.workers if self.pool is not None else []):
+            w = worker.describe()
             i = w["device"]
             pref = f"serve.device.{i}."
             out[str(i)] = {
@@ -1511,6 +1527,13 @@ class ConsensusService:
                 "cordoned": w["cordoned"],
                 "warm_buckets": len(w["warm"]),
             }
+            # the card's allocator, this process's share of it: replicas
+            # sharing one GPU each report their own (absent on the CPU)
+            mem = obs_counters.device_memory(worker.device)
+            if mem:
+                out[str(i)]["memory"] = {
+                    k: mem[k] for k in ("bytes_in_use", "peak_bytes_in_use",
+                                        "bytes_limit")}
         return out
 
 
@@ -1855,6 +1878,7 @@ class _Handler(BaseHTTPRequestHandler):
                              "fcobs": self.service._reg.snapshot(),
                              "serve": self.service.stats(),
                              "devices": self.service.device_stats(),
+                             "kernels": self.service.kernel_stats(),
                              "latency": self.service.latency_stats(),
                              "shaping": self.service.shaping_stats()})
             return

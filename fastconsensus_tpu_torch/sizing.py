@@ -18,6 +18,7 @@ import os
 import tempfile
 from typing import Callable, Optional
 
+from fastconsensus_tpu_torch.analysis.footprint import grid_up  # noqa: F401
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.utils.env import env_int
 
@@ -39,19 +40,6 @@ def members_per_call(slab: GraphSlab, n_p: int,
     budget = env_int("FCTPU_ENSEMBLE_BUDGET_MB", 2048) << 20
     return max(1, min(n_p, budget // max(1, member_bytes(slab) +
                                           extra_bytes)))
-
-
-def grid_up(n: int, minimum: int = 1) -> int:
-    """Smallest value >= n on the coarse {2^k, 3*2^k} grid (1, 2, 3, 4,
-    6, 8, 12, 16, 24, 32, 48, 64, ...), the reference's rule.  The shape
-    buckets (``serve/bucketer.py``) pad every graph's node and edge counts
-    up to it; successive classes are at most 4/3 apart."""
-    n = max(int(n), int(minimum), 1)
-    p = 1
-    while p < n:
-        p *= 2
-    q = (3 * p) // 4
-    return q if p >= 4 and q >= n else p
 
 
 def atomic_write_json(path: str, obj) -> bool:

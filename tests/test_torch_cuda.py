@@ -450,3 +450,55 @@ def test_service_on_card_equals_cpu_service(card):
                                       np.stack(c["partitions"]))
     np.testing.assert_array_equal(np.stack(out["cuda"][0]["partitions"]),
                                   np.stack(out["cuda"][1]["partitions"]))
+
+
+def test_two_replica_fleet_on_card_serves_the_bucketed_run(card, tmp_path):
+    """Two ``python -m fastconsensus_tpu_torch.serve`` replicas sharing the
+    card behind the fleet router: karate through the router equals the
+    library's bucketed run on the card (``pad_to_bucket`` +
+    ``run_consensus``), and each replica serves on CUDA."""
+    import os
+    import threading
+
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.serve.client import ServeClient
+    from fastconsensus_tpu_torch.serve.fleet import FleetManager
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    edges, _, ids = read_edgelist(os.path.join(repo, "examples",
+                                               "karate_club.txt"))
+    fleet = FleetManager(str(tmp_path / "fleet"), cache_spill_s=None,
+                         replica_args=("--max-batch", "4"))
+    try:
+        spawns = [threading.Thread(target=fleet.spawn, args=(n,), kwargs={
+            "env_extra": {"PYTHONPATH": repo}}) for n in ("r0", "r1")]
+        for t in spawns:
+            t.start()
+        for t in spawns:
+            t.join(timeout=300)
+        assert sorted(fleet.replicas) == ["r0", "r1"]
+        client = ServeClient(fleet.start_router(), timeout=60.0)
+        res = client.run(edges.tolist(), n_nodes=len(ids), algorithm="louvain",
+                         n_p=4, tau=0.2, delta=0.02, max_rounds=8, seed=0,
+                         timeout=300)
+        # the allocator block is reported only by a worker on CUDA
+        mem = [s.get("memory") for r in fleet.replicas.values()
+               for s in ServeClient(r.base_url).metricsz()["devices"]
+               .values()]
+    finally:
+        codes = fleet.stop_all(graceful=True)
+    assert codes == {"r0": 0, "r1": 0}
+    assert all(m is not None and m["bytes_limit"] > 0 for m in mem), mem
+    slab, bucket = bucketer.pad_to_bucket(edges, len(ids), device="cuda")
+    lib = run_consensus(slab, get_detector("louvain"), ConsensusConfig(
+        n_p=4, tau=0.2, delta=0.02, max_rounds=8, seed=0),
+        n_closure=bucket.n_closure)
+    want = [np.unique(np.asarray(p)[:len(ids)], return_inverse=True)[1]
+            for p in lib.partitions]
+    assert res["rounds"] == lib.rounds
+    np.testing.assert_array_equal(np.asarray(res["partitions"]),
+                                  np.stack(want))
