@@ -37,30 +37,41 @@ Phases (any failure exits non-zero without the final line):
              as in phase 2 and timed, and the device memory of one group
              of the scatter wedge sampler at its element cap, on the
              slab at the run's largest capacity
-8. leiden_lfr10k  bench.py's lfr10k configuration on
+8. mesh      lfr100k through run_consensus(mesh=): louvain, the scatter
+             wedge sampler, seed 0, tau 0.2, delta 0.02 (the CLI's),
+             n_p 8, 2 rounds, a warm-up run, then unsharded and on a
+             (p=2, e=2) and a (p=1, e=4) mesh that list this card 4
+             times (a (p=1, e=count) and a (p=2, e=count/2) mesh over
+             distinct GPUs too where the machine has two or more);
+             partitions, rounds, integer round stats and the gathered
+             slab over the unsharded capacity bitwise equal; each
+             layout's wall, peak device memory (per card) and row_totals
+             launches by shape; each sharded run must launch row_totals;
+             row_totals per shape as in 7
+9. leiden_lfr10k  bench.py's lfr10k configuration on
              bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
              max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
              peak memory and n_agg_overflow; row_totals per shape as in 7
-9. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
+10. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
              size_alpha 0.85, p_in 0.6, p_out 0.02, seed 42): lpm, n_p=50,
              tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
              kernel's sorted regime; row_totals per shape as in 7, and the
              vote's sorted-rank step timed at the run's shape
-10. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
+11. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
              the card) on the emailEu stand-in: n_p=50, tau=0.7,
              delta=0.02, seed 0; rounds, wall, host C++ seconds and tail
              seconds per round, peak memory, member NMI to the planted
              labels
-11. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
+12. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
              n_p=50, tau=0.6, delta=0.02, max_rounds=8; both cells are
              run once more on the CPU and must give identical partitions,
              round histories and output trees
-12. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
+13. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
              hybrid rows on gpu_cpu's planted 5k graph; 4 rounds
              uninterrupted against 2 rounds resumed to 4, and against a
              card resume of a checkpoint the CPU wrote: equal partitions,
              histories and output trees
-13. recovery  the CLI with --checkpoint --resume --detect-cache
+14. recovery  the CLI with --checkpoint --resume --detect-cache
              --trace-jsonl --trace --dump-on-signal on resume's graph and
              settings, FCTPU_DETECT_CALL_MEMBERS=2: killed (SIGQUIT: a
              fcflight bundle naming the cache; then SIGKILL) once round
@@ -68,13 +79,13 @@ Phases (any failure exits non-zero without the final line):
              fastconsensus_tpu_torch.utils.supervise: output trees equal
              to an uninterrupted run's, cached chunks reused; row_totals
              per shape as in 7
-14. trace    the CLI on the same graph, 2 rounds, with the tracer off,
+15. trace    the CLI on the same graph, 2 rounds, with the tracer off,
              on (--trace), and on with --profile-dir: the Perfetto file's
              fcobs spans in order, its device track, the row_totals
              kernel events inside the run's spans, the JSONL counters and
              the device-memory gauge against max_memory_allocated; the
              three walls printed
-15. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
+16. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
              delta=0.02, seed 0, at most 16 rounds): a parent run, a child
              graph with a seeded 1% edge delta (serve/delta.py), the
              incremental run from the parent's partitions with the
@@ -83,7 +94,7 @@ Phases (any failure exits non-zero without the final line):
              and the incremental run again on the CPU: identical
              partitions and integer history, frozen vertices at their
              parent labels; row_totals per shape as in 7
-16. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
+17. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
              (louvain, n_p=20, tau=0.2, delta=0.02, closure_tau=0.2, seeds
              11/22/33/44, at most 16 rounds): A, four emailEu stand-ins
              (graph seeds 42-45, the matmul sweep); B, lfr10k and three
@@ -92,17 +103,17 @@ Phases (any failure exits non-zero without the final line):
              solo walls, peak device memory of the batch and of the
              largest solo run, splits and rounds printed; batch A's peak
              within the member budget plus the slabs
-17. serve    the serving tier.  A, in this process: a ConsensusService
+18. serve    the serving tier.  A, in this process: a ConsensusService
              on the card (one worker, max_batch 4) behind its HTTP front
              end; lfr10k as a solo job (louvain, n_p=20, tau=0.2,
-             delta=0.02, seed 0, at most 16 rounds, phase 15's parent),
-             batch A's four jobs (phase 16) submitted concurrently while
+             delta=0.02, seed 0, at most 16 rounds, phase 16's parent),
+             batch A's four jobs (phase 17) submitted concurrently while
              it runs, which must coalesce into one rung-4 batch with no
-             solo fallback, phase 15's 1% delta against the lfr10k job
+             solo fallback, phase 16's 1% delta against the lfr10k job
              (served incremental), and the lfr10k job again (a
              submit-time cache hit: no launch, 0 compiles); the solo job
              equal to run_consensus on its bucket slab, each batch job to
-             its solo run (phase 16's when it ran), the delta to the
+             its solo run (phase 17's when it ran), the delta to the
              library path (serve/delta.py + run_consensus(init_labels=,
              active_mask=)); per job the queue wait, device and total
              milliseconds, rung and compiles, each bucket's cost prior
@@ -116,15 +127,15 @@ Phases (any failure exits non-zero without the final line):
              run_consensus), SIGTERM (drain, cache spill, exit 0), a
              restart on the same cache file answering the louvain repeat
              from the cache with 0 compiles and the same bytes
-18. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
+19. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
              process) over two python -m fastconsensus_tpu_torch.serve
              --max-batch 4 replicas sharing the card (spawned together,
              each's seconds to a healthy /healthz): through the router,
-             karate with louvain and lpm (n_p 20, phase 17 B's), lfr10k
-             (phase 15's parent), batch A's four jobs (phase 16's),
+             karate with louvain and lpm (n_p 20, phase 18 B's), lfr10k
+             (phase 16's parent), batch A's four jobs (phase 17's),
              which share a route key and must coalesce into one rung-4
              batch on the ring's home for it, queued behind a running
-             job there, and phase 15's 1% delta (routed on its parent,
+             job there, and phase 16's 1% delta (routed on its parent,
              under the default DeltaPolicy; the decision and whether the
              parent was fetched across replicas printed); per job the
              replica, route key and timing block; every replica 0
@@ -147,16 +158,17 @@ Phases (any failure exits non-zero without the final line):
              jobs their solo runs, the delta the library path under the
              replica's decision); the phase's wall
 
-Kernel launch counters are reset just before phases 6-9, 12, 13 (its
-uninterrupted run), 14 (its profiled run), 15 (its incremental card run),
-16 and 17 (its part A) and read just after: phases 7-9, 12-15 and 17 must
-launch ``row_totals``, phase 6 ``fused_move_rows``; phase 16's
+Kernel launch counters are reset just before phases 6-7, each of
+phase 8's runs, phases 9-10, 13, 14 (its uninterrupted run), 15 (its
+profiled run), 16 (its incremental card run), 17 and 18 (its part A) and
+read just after: phases 7, 9-10, 13-16 and 18 and phase 8's sharded
+runs must launch ``row_totals``, phase 6 ``fused_move_rows``; phase 17's
 bucketed slabs take the matmul and hash sweeps, which launch no kernel
-of the port (a job split off to a solo run may); phase 17's lfr10k jobs
+of the port (a job split off to a solo run may); phase 18's lfr10k jobs
 start on the hash sweep and take hybrid rows once their budgets are
-re-derived.  Phase 18's replicas launch ``row_totals`` in their own
+re-derived.  Phase 19's replicas launch ``row_totals`` in their own
 processes, fresh ones, and report their counts in ``/metricsz``
-(``kernels``); phase 18 sums them over the replicas after its routed
+(``kernels``); phase 19 sums them over the replicas after its routed
 traffic and must find launches.  The second-to-last
 lines are the kernels' JSON record and the card's name and power limit;
 the last line is the device record.
@@ -743,8 +755,9 @@ def _scatter_group_peak(edges, n, capacity):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    out = cops.partner_draw_batches(key, srcd, dstd, valid_e, n, capacity,
-                                    group * n)
+    out = cops.partner_draw_batches(key, [srcd], [dstd], [valid_e], n,
+                                    capacity, group * n,
+                                    cops.scatter_argmax_shards)
     sync()
     secs = time.perf_counter() - t0
     extra = torch.cuda.max_memory_allocated() - base
@@ -755,6 +768,106 @@ def _scatter_group_peak(edges, n, capacity):
         f"(cap {cops.SCATTER_GROUP_ELEMS}); peak {extra} bytes over the "
         f"resident slab ({extra / elems:.2f} bytes an element), "
         f"{secs:.4f}s")
+
+
+def phase_mesh(state):
+    """lfr100k through ``run_consensus(mesh=)``: louvain with the scatter
+    sampler, seed 0, the CLI's tau and delta, n_p 8, 2 rounds; unsharded,
+    on a (p=2, e=2) mesh and on a (p=1, e=4) mesh (the MeshWorker's
+    layout), each mesh listing this card 4 times, after an unsharded
+    warm-up run.  Partitions, rounds,
+    integer round stats and the gathered slab over the unsharded capacity
+    equal across the three; each sharded run launches row_totals; every
+    launched shape checked and timed."""
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch import parallel
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    edges, truth, _, _ = cell_inputs("lfr100k", state)
+    n = int(truth.shape[0])
+    cfg = dict(n_p=state.get("mesh_n_p", 8), tau=0.2, delta=0.02, seed=0,
+               max_rounds=state.get("mesh_rounds", 2),
+               closure_sampler="scatter")
+    log(f"mesh: lfr100k N={n} E={edges.shape[0]}, louvain n_p={cfg['n_p']} "
+        f"max_rounds={cfg['max_rounds']} (cut from bench.py's n_p 200 and "
+        f"8 rounds to fit the time limit), scatter sampler, seed 0")
+    card = torch.device(DEVICE, 0) if DEVICE == "cuda" \
+        else torch.device("cpu")
+    layouts = [("unsharded", None),
+               ("p2_e2", parallel.make_mesh(2, 2, devices=[card] * 4)),
+               ("p1_e4", parallel.make_mesh(1, 4, devices=[card] * 4))]
+    if DEVICE == "cuda" and torch.cuda.device_count() >= 2:
+        # over distinct ordinals: (1, k) as MeshWorker builds it, and
+        # (2, k // 2), whose second ensemble shard detects (and launches
+        # row_totals) on a card that is not the current device
+        k = torch.cuda.device_count()
+        gpus = [torch.device("cuda", i) for i in range(k)]
+        layouts += [(f"p1_e{k}_distinct", parallel.make_mesh(
+                        1, k, devices=gpus)),
+                    (f"p2_e{k // 2}_distinct", parallel.make_mesh(
+                        2, k // 2, devices=gpus))]
+    else:
+        log("mesh: the runs over distinct GPUs did not happen: this "
+            "machine has one card")
+    # a warm-up run first: the first run in a process pays the
+    # allocator's and the kernels' first use, which no layout should
+    _, wall, _ = _run(edges, n, DEVICE, **cfg)
+    log(f"mesh: warm-up run (unsharded, not compared) {wall:.2f}s")
+    runs = {}
+    shapes_all = {}
+    cards = range(torch.cuda.device_count() if DEVICE == "cuda" else 0)
+    for name, mesh in layouts:
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        rk.reset_launches()
+        res, wall, per_round = _run(edges, n, DEVICE,
+                                    run_kw={"mesh": mesh}, **cfg)
+        launches = rk.LAUNCHES["row_totals"]
+        shapes = dict(rk.ROW_TOTALS_SHAPES)
+        for s, c in shapes.items():
+            shapes_all[s] = shapes_all.get(s, 0) + c
+        by_card = [torch.cuda.max_memory_allocated(i) for i in cards]
+        peak = max(by_card) if by_card else None
+        runs[name] = res
+        log(f"mesh {name}: shape {None if mesh is None else mesh.shape} "
+            f"rounds={res.rounds} converged={res.converged} "
+            f"wall={wall:.2f}s per_round={[round(x, 3) for x in per_round]} "
+            f"max_memory_allocated={peak} by_card={by_card} "
+            f"row_totals_launches={launches} "
+            f"by_shape={sorted(shapes.items())} capacity="
+            f"{res.graph.capacity}")
+        if mesh is not None:
+            check(launches > 0, f"mesh {name} never launched row_totals")
+        state.setdefault("mesh", {})[name] = dict(
+            wall_s=wall, per_round_s=per_round, max_memory_allocated=peak,
+            row_totals_launches=launches)
+    base = runs["unsharded"]
+    c = base.graph.capacity
+    for name, res in runs.items():
+        check(res.rounds == base.rounds and res.converged == base.converged,
+              f"mesh {name}: rounds {res.rounds} != {base.rounds}")
+        check(np.array_equal(np.stack(res.partitions),
+                             np.stack(base.partitions)),
+              f"mesh {name}: partitions differ from the unsharded run's")
+        check(len(res.history) == len(base.history) and all(
+            a[k] == b[k] for a, b in zip(res.history, base.history)
+            # a mesh pads the capacity to a multiple of its edge axis
+            for k in HISTORY_INTS if k != "capacity"),
+            f"mesh {name}: integer round stats differ")
+        g = res.graph
+        check(all(torch.equal(getattr(g, f)[:c].to(card),
+                              getattr(base.graph, f))
+                  for f in ("src", "dst", "weight", "alive"))
+              and not bool(g.alive[c:].any()),
+              f"mesh {name}: the gathered slab differs")
+    log(f"mesh: {len(runs)} layouts bitwise equal (partitions, rounds, "
+        f"integer stats, slab over {c} slots)")
+    log(f"mesh: {smi_line()}")
+    per_shape = check_and_time_shapes(shapes_all, seed=4)
+    state.setdefault("main_paths", {})["mesh"] = dict(
+        launches=sum(shapes_all.values()), by_shape=per_shape)
 
 
 def _main_path_run(state, name):
@@ -2609,6 +2722,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "memory": phase_memory, "karate": phase_karate,
           "gpu_cpu": phase_gpu_cpu,
           "fused": phase_fused, "lfr100k": phase_lfr100k,
+          "mesh": phase_mesh,
           "leiden_lfr10k": phase_leiden_lfr10k,
           "lpm_emaileu": phase_lpm_emaileu,
           "cnm_emaileu": phase_cnm_emaileu,

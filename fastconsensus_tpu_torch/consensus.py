@@ -15,9 +15,10 @@ graphs as one member-batched detection stream, each job's result its
 solo run's.  With ``detect_cache_dir`` every round's detection and the
 final re-detection run in driver chunks persisted as they finish, so a
 killed run restarts within the round it died in.  fcobs spans and
-counters (``obs/``) mark the same places as the reference's.
-
-Not ported yet: the device mesh.
+counters (``obs/``) mark the same places as the reference's.  With a
+device mesh (``run_consensus(mesh=)``, ``parallel/``) the ensemble splits
+over its "p" axis and the slab over its "e" axis, bit for bit the
+unsharded run with the scatter sampler.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ from fastconsensus_tpu_torch.graph import (GraphSlab, check_stackable,
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs.tracer import get_tracer
+from fastconsensus_tpu_torch.parallel.sharding import (ENSEMBLE_AXIS, Mesh,
+                                                       ShardedSlab,
+                                                       gather_labels,
+                                                       gather_slab,
+                                                       shard_labels,
+                                                       shard_slab)
 from fastconsensus_tpu_torch.utils import prng
 from fastconsensus_tpu_torch.utils.env import env_int, resolve_device
 
@@ -298,23 +305,25 @@ class _JobPolicy:
             slab.d_hyb, new_hyb, slab.hub_cap, new_hub, slab.agg_cap,
             new_agg)
         obs_counters.get_registry().inc("budgets.rederive_events")
-        return dataclasses.replace(slab, d_cap=new_d_cap, d_hyb=new_hyb,
-                                   hub_cap=new_hub, agg_cap=new_agg)
+        return slab.with_statics(d_cap=new_d_cap, d_hyb=new_hyb,
+                                 hub_cap=new_hub, agg_cap=new_agg)
 
 
 def _cache_fingerprint(config: ConsensusConfig, slab: GraphSlab,
-                       warm: bool, sampler: str) -> str:
+                       warm: bool, sampler: str, mesh=None) -> str:
     """The reference's detect-cache fingerprint of a run: the settings
-    that change its labels and the slab's statics that select the
-    lowering (not the live capacity: labels do not depend on it, so an
-    auto-grow replay keeps its round's chunks).  The reference also
-    hashes its mesh's shape; the port has no mesh (``None``)."""
+    that change its labels, the slab's statics that select the lowering
+    (not the live capacity: labels do not depend on it, so an auto-grow
+    replay keeps its round's chunks) and the mesh's shape (an adopted
+    member count must tile its ensemble axis)."""
     return hashlib.sha1(repr(
         (config.algorithm, config.n_p, config.tau, config.delta,
          config.seed, config.max_rounds, slab.n_nodes,
          slab.cap_hint or slab.capacity, slab.agg_cap, slab.d_cap,
          slab.d_hyb, slab.hub_cap, config.gamma, warm, config.align_frac,
-         sampler, config.closure_tau, None)).encode()).hexdigest()[:10]
+         sampler, config.closure_tau,
+         tuple(mesh.shape.items()) if mesh is not None else None)
+    ).encode()).hexdigest()[:10]
 
 
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
@@ -326,9 +335,19 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   detect_cache_dir: Optional[str] = None,
                   n_closure: Optional[int] = None,
                   init_labels=None,
-                  active_mask=None) -> ConsensusResult:
+                  active_mask=None,
+                  mesh: Optional[Mesh] = None) -> ConsensusResult:
     """Iterate rounds to delta-convergence (or ``max_rounds``), then run the
     final re-detection.  Runs on the slab's device.
+
+    ``mesh`` (``parallel.make_mesh``): the ``n_p`` members split over its
+    "p" axis (each block detected on its own device) and the slab over
+    its "e" axis (``parallel.shard_slab``, again after every auto-grow
+    replay), the tail running edge-locally (``ops/sharded_tail.py``).
+    ``n_p`` must divide by the "p" axis; the wedge sampler is the
+    scatter one ("auto" resolves to it, "csr" raises); no
+    ``init_labels``.  Partitions, rounds and the slab are bit for bit the
+    unsharded scatter run's; ``graph`` comes back gathered into one slab.
 
     ``checkpoint_path`` persists the state every ``checkpoint_every``
     rounds and on convergence; with ``resume`` an existing checkpoint
@@ -369,9 +388,15 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         n_closure = int(slab.num_alive())   # L := |E0|
     n_closure = int(n_closure)
     _validate_config(config)
-    # "auto" is csr: the port has no edge-sharded mesh
-    sampler = "csr" if config.closure_sampler == "auto" \
-        else config.closure_sampler
+    if config.closure_sampler == "csr" and mesh is not None:
+        raise ValueError(
+            "closure_sampler='csr' is incompatible with a mesh: the CSR "
+            "argsort re-gathers the edge-sharded slab every round; use "
+            "'auto' or 'scatter'")
+    # "auto": the sort-free engine on a mesh, the CSR fast path off it
+    sampler = "scatter" if mesh is not None else (
+        "csr" if config.closure_sampler == "auto" else
+        config.closure_sampler)
     n_p = config.n_p
     warm = config.warm_start and getattr(detect, "supports_init", False)
     if active_mask is not None and init_labels is None:
@@ -382,6 +407,8 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
             raise ValueError(
                 "init_labels requires warm_start=True and a detector "
                 "with supports_init (the warm ensemble IS the reuse)")
+        if mesh is not None:
+            raise ValueError("init_labels is not supported with a mesh")
         if checkpoint_path is not None or resume:
             raise ValueError("init_labels is incompatible with "
                              "checkpoint/resume (two competing notions "
@@ -391,6 +418,11 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
             raise ValueError(
                 f"init_labels shape {init_labels.shape} != "
                 f"{(config.n_p, slab.n_nodes)} (n_p, n_nodes)")
+    if mesh is not None and n_p % mesh.shape[ENSEMBLE_AXIS]:
+        raise ValueError(
+            f"n_p={n_p} is not divisible by the mesh ensemble axis "
+            f"({mesh.shape[ENSEMBLE_AXIS]}); choose an ensemble axis that "
+            f"divides n_p, or round n_p up with parallel.pad_n_p")
     active_np: Optional[np.ndarray] = None
     active = None
     if active_mask is not None:
@@ -422,6 +454,8 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         # resume does: round 0 runs the warm detector
         cur_labels = torch.as_tensor(init_labels.astype(np.int64),
                                      device=dev)
+    if mesh is not None:
+        slab = shard_slab(slab, mesh)
     # run-scoped telemetry (after any restore): a checkpoint persists the
     # restored counters plus this run's increments, never counts an
     # earlier run left in the process registry
@@ -437,24 +471,32 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     cache_fp = ""
     first_setup = True
 
+    def mesh_rounded(m: int) -> int:
+        """A driver chunk size rounded up to tile the mesh's ensemble
+        axis (each chunk splits over it)."""
+        if mesh is None or m >= n_p:
+            return m
+        p_axis = mesh.shape[ENSEMBLE_AXIS]
+        return min(n_p, -(-m // p_axis) * p_axis)
+
     def setup_cache() -> None:
         """The detect cache's fingerprint and driver chunk size, from the
         slab's statics: at the start and after a budget re-derivation."""
         nonlocal members, cache_fp, first_setup
         os.makedirs(detect_cache_dir, exist_ok=True)
-        fp_base = _cache_fingerprint(config, slab, warm, sampler)
+        fp_base = _cache_fingerprint(config, slab, warm, sampler, mesh)
         pinned = env_int("FCTPU_DETECT_CALL_MEMBERS")
         prev = sizing.read_sizing(detect_cache_dir) \
             if first_setup and pinned is None else None
         if pinned is not None:
-            members = n_p if pinned <= 0 else min(pinned, n_p)
+            members = n_p if pinned <= 0 else mesh_rounded(min(pinned, n_p))
         elif prev is not None and prev.get("fp") == fp_base:
             # a restart adopts the killed run's chunking, whatever its
             # own sizing says, or the round's persisted chunks orphan
             members = int(prev["members"])
         else:
-            members = sizing.members_per_call(
-                slab, n_p, getattr(detect, "member_bytes", None))
+            members = mesh_rounded(sizing.members_per_call(
+                slab, n_p, getattr(detect, "member_bytes", None)))
         cache_fp = hashlib.sha1(repr((fp_base, members)).encode()
                                 ).hexdigest()[:10]
         sizing.write_sizing(detect_cache_dir, fp_base, members)
@@ -471,10 +513,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                 setup_cache()
 
     def chunked(det: Detector, tag: str) -> Detector:
-        """``det`` through the persisted driver chunks of ``tag``."""
+        """``det`` through the persisted driver chunks of ``tag`` (one
+        chunk without the cache); on a mesh every chunk splits over
+        it."""
         return lambda s, ks, init=None: _detect_chunked(
             det, s, ks, members, cache_dir=detect_cache_dir,
-            cache_tag=f"{cache_fp}_{tag}", init_labels=init)
+            cache_tag=f"{cache_fp}_{tag}", init_labels=init,
+            ensemble_sharding=mesh)
 
     history: List[dict] = list(prior_history)
     converged = resumed_converged
@@ -485,6 +530,10 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     cold_start_round = start_round if cur_labels is None else -1
     job = _JobPolicy(config, detect, warm, cold_start_round, history)
     sing = torch.arange(slab.n_nodes, device=dev).expand(n_p, slab.n_nodes)
+    if mesh is not None:
+        sing = shard_labels(sing, mesh)
+        if cur_labels is not None:
+            cur_labels = shard_labels(cur_labels, mesh)
     if warm and cur_labels is None:
         cur_labels = sing
     prev_round_labels = sing
@@ -501,7 +550,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         is_cold = mode != "warm"
         round_detect = {"cold": detect, "refresh": detect_refresh,
                         "warm": detect_warm}[mode]
-        if detect_cache_dir:
+        if detect_cache_dir or mesh is not None:
             round_detect = chunked(round_detect, f"r{r}")
         with tracer.step_span("round", r, mode=mode):
             if warm:
@@ -510,12 +559,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                     n_closure, init_labels=sing if is_cold else cur_labels,
                     align=job.align(r) and not is_cold,
                     closure_tau=config.closure_tau, prev_labels=cur_labels,
-                    sampler=sampler, active=active)
+                    sampler=sampler, active=active, ensemble_sharding=mesh)
             else:
                 slab_new, new_labels, stats = consensus_round(
                     slab, k, round_detect, n_p, config.tau, config.delta,
                     n_closure, closure_tau=config.closure_tau,
-                    prev_labels=prev_round_labels, sampler=sampler)
+                    prev_labels=prev_round_labels, sampler=sampler,
+                    ensemble_sharding=mesh)
             stats = stats_to_host([stats])[0]
         obs_counters.host_sync("round_stats")
         dropped = int(stats.n_dropped)
@@ -530,7 +580,11 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                     "edge slab saturated (%d survivors dropped); growing "
                     "capacity %d -> %d and replaying the round", dropped,
                     pre_slab.capacity, new_cap)
-                slab = grow_slab(pre_slab, new_cap)
+                if mesh is not None:
+                    slab = shard_slab(grow_slab(gather_slab(pre_slab),
+                                                new_cap), mesh)
+                else:
+                    slab = grow_slab(pre_slab, new_cap)
             continue
         slab = slab_new
         if warm:
@@ -554,7 +608,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                 # key data and, when warm, the labels are read back
                 obs_counters.host_sync("checkpoint", 2 if warm else 1)
                 ckpt.save_checkpoint(
-                    checkpoint_path, slab, rounds, prng.key_data(key),
+                    checkpoint_path, _whole(slab), rounds, prng.key_data(key),
                     history,
                     extra={"algorithm": config.algorithm, "n_p": n_p,
                            "tau": config.tau, "delta": config.delta,
@@ -566,7 +620,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                            # the port sizes member chunks from memory alone
                            "member_seconds": None,
                            "converged": converged},
-                    labels=cur_labels if warm else None,
+                    labels=gather_labels(cur_labels) if warm else None,
                     telemetry=run_telemetry())
         if converged:
             break
@@ -578,12 +632,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     final_detect = detect_warm if (
         warm and (cold_start_round == -1 or rounds > start_round)) \
         else detect
-    if detect_cache_dir:
+    if detect_cache_dir or mesh is not None:
         final_detect = chunked(final_detect, "final")
     with tracer.span("final_detect"):
         final_labels = final_detect(slab, final_keys,
                                     cur_labels if warm else None)
-        all_labels = final_labels.cpu().numpy().astype(np.int32)
+        all_labels = gather_labels(final_labels).cpu().numpy().astype(
+            np.int32)
     obs_counters.host_sync("final_labels")
     partitions = [all_labels[i] for i in range(n_p)]
     if active_np is not None:
@@ -591,8 +646,14 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
         # re-detection too
         partitions = [np.where(active_np, p, init_labels[i])
                       for i, p in enumerate(partitions)]
-    return ConsensusResult(partitions=partitions, graph=slab, rounds=rounds,
-                           converged=converged, history=history)
+    return ConsensusResult(partitions=partitions, graph=_whole(slab),
+                           rounds=rounds, converged=converged,
+                           history=history)
+
+
+def _whole(slab) -> GraphSlab:
+    """A slab in one piece: a sharded one gathered, a whole one as is."""
+    return gather_slab(slab) if isinstance(slab, ShardedSlab) else slab
 
 
 class BatchResults(list):

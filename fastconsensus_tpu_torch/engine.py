@@ -15,7 +15,11 @@ the on-device loop: one round of B same-bucket graphs, one detection
 stream over all of them, the tail per graph.
 
 :func:`_detect_chunked` is the elastic-recovery detection: the members
-run in driver chunks, each persisted to a cache dir as it finishes.
+run in driver chunks, each persisted to a cache dir as it finishes.  On
+a device mesh (``ensemble_sharding``, ``parallel/``) every chunk splits
+over the mesh's ensemble axis, each block detected on its own device,
+and the round's tail runs edge-locally over the sharded slab
+(``ops/sharded_tail.py``).
 
 Not ported: the fused solo round block ``consensus_rounds_block``
 (documented bit-identical to per-round execution, so it has no result of
@@ -39,6 +43,11 @@ from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs import quality as obs_quality
 from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.ops import consensus_ops as cops
+from fastconsensus_tpu_torch.ops.sharded_tail import sharded_consensus_tail
+from fastconsensus_tpu_torch.parallel.sharding import (Mesh, gather_labels,
+                                                       replicate_slab,
+                                                       shard_keys,
+                                                       shard_labels)
 from fastconsensus_tpu_torch.utils import prng
 
 _logger = logging.getLogger("fastconsensus_tpu_torch")
@@ -152,13 +161,26 @@ def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
                     closure_tau: Optional[float] = None,
                     prev_labels: Optional[torch.Tensor] = None,
                     sampler: str = "csr",
-                    active: Optional[torch.Tensor] = None
+                    active: Optional[torch.Tensor] = None,
+                    ensemble_sharding: Optional[Mesh] = None
                     ) -> Tuple[GraphSlab, torch.Tensor, RoundStats]:
     """One full round: ``(next_slab, labels[n_p, N], stats)``.
 
     ``active`` (bool[N], fcdelta) freezes the vertices outside the mask:
     after detection their labels are set back to the round-entering
-    ``prev_labels``, which it therefore requires.  ``None`` adds no op."""
+    ``prev_labels``, which it therefore requires.  ``None`` adds no op.
+
+    ``ensemble_sharding`` (a ``parallel.Mesh``): ``slab`` is a
+    ``ShardedSlab`` on its edge axis, and ``detect`` places the ensemble
+    itself: it takes the sharded slab and all ``n_p`` keys, and each
+    ensemble shard detects its block of keys on its own device against a
+    replicated slab (the driver passes a detector through
+    :func:`_detect_chunked` with ``ensemble_sharding``).  The
+    labels (in and out) stay split along "p", and the tail runs
+    edge-locally (``ops/sharded_tail.py``, the scatter sampler).  Not
+    with ``active``: the mesh path serves no fcdelta jobs."""
+    if active is not None and ensemble_sharding is not None:
+        raise ValueError("active mask is not supported on the mesh path")
     if active is not None and prev_labels is None:
         raise ValueError("active mask requires prev_labels (the freeze "
                          "source for masked-out vertices)")
@@ -169,11 +191,18 @@ def consensus_round(slab: GraphSlab, key: torch.Tensor, detect: Detector,
     if active is not None:
         labels = torch.where(active[None, :], labels, prev_labels)
     with tracer.span("tail"):
-        slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau,
-                                     delta, n_closure,
-                                     closure_tau=closure_tau,
-                                     prev_labels=prev_labels,
-                                     sampler=sampler)
+        if ensemble_sharding is not None:
+            labels = shard_labels(labels, ensemble_sharding)
+            slab, stats = sharded_consensus_tail(
+                slab, labels, k_closure, n_p, tau, delta, n_closure,
+                ensemble_sharding, closure_tau=closure_tau,
+                prev_labels=prev_labels)
+        else:
+            slab, stats = consensus_tail(slab, labels, k_closure, n_p, tau,
+                                         delta, n_closure,
+                                         closure_tau=closure_tau,
+                                         prev_labels=prev_labels,
+                                         sampler=sampler)
     return slab, labels, stats
 
 
@@ -245,7 +274,8 @@ def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
 def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
                     members: int, cache_dir: Optional[str] = None,
                     cache_tag: str = "",
-                    init_labels: Optional[torch.Tensor] = None
+                    init_labels: Optional[torch.Tensor] = None,
+                    ensemble_sharding: Optional[Mesh] = None
                     ) -> torch.Tensor:
     """Run detection as ``ceil(n_p / members)`` separate calls of
     ``members`` keys each (the reference's split dispatch), every chunk
@@ -260,13 +290,32 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
     reference pads them, so the files match the reference's.  Inside a
     chunk the detector still chunks its members by memory
     (``models/base.ensemble``).  ``members >= n_p`` is one call, with no
-    barrier and no cache."""
+    barrier and no cache.
+
+    ``ensemble_sharding`` (a ``parallel.Mesh``): every call splits its
+    keys (a multiple of the ensemble axis) over "p", each block detected
+    on its shard's device against a replicated slab (gathered once, for
+    every chunk); the labels come back as per-shard blocks."""
     n_p = keys.shape[0]
     tracer = get_tracer()
     obs_reg = obs_counters.get_registry()
+    mesh = ensemble_sharding
+    if mesh is not None:
+        reps = replicate_slab(slab, mesh)
+        slab = reps[0]
+
+    def call(ks, init):
+        if mesh is None:
+            return detect(slab, ks, init)
+        ib = [None] * len(reps) if init is None else shard_labels(init, mesh)
+        return [detect(rep, kb, None if i is None else i.to(rep.device))
+                for rep, kb, i in zip(reps, shard_keys(ks, mesh), ib)]
+
     if members >= n_p:
         with tracer.span("detect_dispatch", members=n_p):
-            return detect(slab, keys, init_labels)
+            return call(keys, init_labels)
+    if mesh is not None and init_labels is not None:
+        init_labels = gather_labels(init_labels)
     n_calls = -(-n_p // members)
     pad = n_calls * members - n_p
     if pad:
@@ -300,12 +349,14 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
         sl = slice(i * members, (i + 1) * members)
         with tracer.span("detect_chunk", chunk=i, members=members,
                          tag=cache_tag):
-            out = detect(slab, keys[sl],
-                         None if init_labels is None else init_labels[sl])
+            out = call(keys[sl],
+                       None if init_labels is None else init_labels[sl])
             # the per-chunk barrier: each chunk's time is its own, and a
             # chunk is durable only once it is done
-            if out.is_cuda:
-                torch.cuda.synchronize(out.device)
+            for block in ([out] if mesh is None else out):
+                if block.is_cuda:
+                    torch.cuda.synchronize(block.device)
+            out = gather_labels(out).to(dev)
         obs_counters.host_sync("detect_chunk")
         dt = time.perf_counter() - t0
         obs_reg.inc("detect.chunks")
@@ -318,4 +369,5 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
                 np.save(fh, out.cpu().numpy().astype(np.int32))
             os.replace(tmp, path)
         parts.append(out)
-    return torch.cat(parts, dim=0)[:n_p]
+    labels = torch.cat(parts, dim=0)[:n_p]
+    return labels if mesh is None else shard_labels(labels, mesh)

@@ -79,6 +79,10 @@ class GraphSlab:
             self, src=pick(self.src), dst=pick(self.dst),
             weight=pick(self.weight), alive=pick(self.alive))
 
+    def with_statics(self, **statics) -> "GraphSlab":
+        """The slab with new static sizing fields (``d_cap``, ...)."""
+        return dataclasses.replace(self, **statics)
+
     def with_weights(self, weight: torch.Tensor,
                      alive: Optional[torch.Tensor] = None) -> "GraphSlab":
         return dataclasses.replace(

@@ -18,7 +18,7 @@ the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -140,23 +140,42 @@ def sample_wedges_scatter(key: torch.Tensor, slab: GraphSlab,
     n = slab.n_nodes
     srcd, dstd, _, ad = slab.directed()
     valid_e = ad & (srcd != dstd)
-    u, v, ok = partner_draw_batches(key, srcd, dstd, valid_e, n,
-                                    slab.capacity, n_samples)
+    u, v, ok = partner_draw_batches(key, [srcd], [dstd], [valid_e], n,
+                                    slab.capacity, n_samples,
+                                    scatter_argmax_shards)
     return torch.where(ok, u, 0), torch.where(ok, v, 0), ok
 
 
-def partner_draw_batches(key: torch.Tensor, srcd: torch.Tensor,
-                         dstd: torch.Tensor, valid_e: torch.Tensor, n: int,
-                         capacity: int, n_samples: int
+def scatter_argmax_shards(score, segs, label, valid, num: int):
+    """The unsharded sampler's per-node argmax: one shard's
+    :func:`segment.scatter_argmax_label` (``ops/sharded_tail.
+    _node_argmax`` is the cross-shard one)."""
+    (score,), (segs,), (label,), (valid,) = score, segs, label, valid
+    return seg.scatter_argmax_label(segs, score, label, valid, num)
+
+
+def partner_draw_batches(key: torch.Tensor, srcd: Sequence[torch.Tensor],
+                         dstd: Sequence[torch.Tensor],
+                         valid_e: Sequence[torch.Tensor], n: int,
+                         capacity: int, n_samples: int, argmax
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The scatter sampler's draw engine: draw ``d`` uses the two keys of
-    ``split(fold_in(key, d))``; G draws run as one flat scatter-argmax over
-    (draw, node) segments, in groups of ``min(draws, SCATTER_GROUP_ELEMS //
-    max(2*capacity, n+1))`` draws (the reference's ``lax.scan`` over
-    groups, as a loop).  The kept window starts at ``randint(fold_in(key,
-    draws), (), 0, draws*n)`` of the unpadded grid and wraps, so neither
-    capacity nor the group size changes the result."""
-    dev = srcd.device
+    """The scatter sampler's draw engine, one definition for the unsharded
+    and the edge-sharded tail (their wedges must be bit-identical; only
+    the ``argmax`` callee differs).  ``srcd``/``dstd``/``valid_e`` are the
+    directed entries of each edge shard (one shard: the whole slab);
+    ``argmax(scores, segs, labels, valid, num) -> (best, score, has)``
+    takes the shards' lists and returns the per-segment winners on the
+    first shard's device.
+
+    Draw ``d`` uses the two keys of ``split(fold_in(key, d))``; G draws
+    run as one flat scatter-argmax over (draw, node) segments, in groups
+    of ``min(draws, SCATTER_GROUP_ELEMS // max(2*capacity, n+1))`` draws
+    (the reference's ``lax.scan`` over groups, as a loop; ``capacity`` is
+    a shard's).  The kept window starts at ``randint(fold_in(key, draws),
+    (), 0, draws*n)`` of the unpadded grid and wraps, so neither capacity
+    nor the group size changes the result."""
+    dev = srcd[0].device
+    key = key.to(dev)
     draws = -(-n_samples // max(n, 1))
     if draws == 0:
         z = torch.zeros((0,), dtype=torch.int64, device=dev)
@@ -171,16 +190,20 @@ def partner_draw_batches(key: torch.Tensor, srcd: torch.Tensor,
     n_groups = -(-draws // group)
     ks = prng.split(prng.fold_in(
         key, torch.arange(n_groups * group, dtype=torch.int64, device=dev)))
-    seg_e = torch.where(valid_e, srcd, n)
+    seg_e = [torch.where(ve, sd, n) for sd, ve in zip(srcd, valid_e)]
 
     def partners(keys: torch.Tensor):
         g = keys.shape[0]
-        pri = seg.pair_jitter(keys, srcd[None], dstd[None], 1.0)
-        seg_ids = (torch.arange(g, device=dev)[:, None] * (n + 1) +
-                   seg_e[None, :]).reshape(-1)
-        best, _, has = seg.scatter_argmax_label(
-            seg_ids, pri.reshape(-1), dstd.expand(g, -1).reshape(-1),
-            valid_e.expand(g, -1).reshape(-1), g * (n + 1))
+        scores, segs, labs, oks = [], [], [], []
+        for sd, dd, ve, se in zip(srcd, dstd, valid_e, seg_e):
+            k = keys.to(sd.device)
+            scores.append(seg.pair_jitter(k, sd[None], dd[None], 1.0
+                                          ).reshape(-1))
+            segs.append((torch.arange(g, device=sd.device)[:, None] *
+                         (n + 1) + se[None, :]).reshape(-1))
+            labs.append(dd.expand(g, -1).reshape(-1))
+            oks.append(ve.expand(g, -1).reshape(-1))
+        best, _, has = argmax(scores, segs, labs, oks, g * (n + 1))
         return (best.reshape(g, n + 1)[:, :n], has.reshape(g, n + 1)[:, :n])
 
     us, vs, oks = [], [], []
@@ -198,54 +221,69 @@ def partner_draw_batches(key: torch.Tensor, srcd: torch.Tensor,
             torch.cat(oks).reshape(-1)[idx])
 
 
+def candidate_survivors(tables: seg.HashTables, cu: torch.Tensor,
+                        cv: torch.Tensor, cand_valid: torch.Tensor
+                        ) -> torch.Tensor:
+    """Closure candidates that survive insertion: absent from the slab
+    (``tables``, the two-table hash membership of its alive pairs) and
+    the first occurrence of their pair among the candidates (scatter-min
+    of the candidate index into two tag tables)."""
+    k = cu.shape[0]
+    exists = seg.lookup_hash_totals(tables, cu, cv) > 0.0
+    b_c = seg.hash_buckets_for(k)
+    h1 = seg._hash_mix(cu, cv, 0x9E3779B1, 0x85EBCA77, b_c)
+    h2 = seg._hash_mix(cu, cv, 0x27D4EB2F, 0x165667B1, b_c)
+    tag = torch.arange(k, device=cu.device)
+    live = cand_valid & ~exists
+    t1 = seg._flat_scatter((b_c + 1,), torch.where(live, h1, b_c), tag,
+                           "amin", k)
+    t2 = seg._flat_scatter((b_c + 1,), torch.where(live, h2, b_c), tag,
+                           "amin", k)
+    return live & ((t1[h1] == tag) | (t2[h2] == tag))
+
+
+def write_slots(slab: GraphSlab, slot: torch.Tensor, u: torch.Tensor,
+                v: torch.Tensor, w: torch.Tensor) -> GraphSlab:
+    """``slab`` with alive edges ``(u, v, w)`` written at the (distinct)
+    slots ``slot``."""
+    src, dst = slab.src.clone(), slab.dst.clone()
+    weight, alive = slab.weight.clone(), slab.alive.clone()
+    src[slot] = u
+    dst[slot] = v
+    weight[slot] = w.to(torch.float32)
+    alive[slot] = True
+    return dataclasses.replace(slab, src=src, dst=dst, weight=weight,
+                               alive=alive)
+
+
 def insert_edges_hash(slab: GraphSlab, cand_u: torch.Tensor,
                       cand_v: torch.Tensor, cand_w: torch.Tensor,
                       cand_valid: torch.Tensor, unique_new: bool = False
                       ) -> Tuple[GraphSlab, torch.Tensor]:
     """Insert candidates into dead slots in slot order, dropping those
     present in the slab (two-table hash membership) and later duplicates
-    (first occurrence wins, via scatter-min of the candidate index).
-    ``unique_new`` skips both checks (exact singleton repair).  Returns
-    the new slab and the number of survivors dropped for capacity."""
+    (:func:`candidate_survivors`).  ``unique_new`` skips both checks
+    (exact singleton repair).  Returns the new slab and the number of
+    survivors dropped for capacity."""
     from fastconsensus_tpu_torch.models.louvain import _cap_hint
 
     cap = slab.capacity
-    k = cand_u.shape[0]
     dev = slab.device
     cu = cand_u.to(torch.int64)
     cv = cand_v.to(torch.int64)
     if unique_new:
         surv = cand_valid
     else:
-        b_e = seg.hash_buckets_for(_cap_hint(slab))
         tables = seg.build_hash_totals(
-            slab.src, slab.dst, torch.ones(cap, device=dev), slab.alive, b_e)
-        exists = seg.lookup_hash_totals(tables, cu, cv) > 0.0
-        b_c = seg.hash_buckets_for(k)
-        h1 = seg._hash_mix(cu, cv, 0x9E3779B1, 0x85EBCA77, b_c)
-        h2 = seg._hash_mix(cu, cv, 0x27D4EB2F, 0x165667B1, b_c)
-        tag = torch.arange(k, device=dev)
-        live = cand_valid & ~exists
-        t1 = seg._flat_scatter((b_c + 1,), torch.where(live, h1, b_c), tag,
-                               "amin", k)
-        t2 = seg._flat_scatter((b_c + 1,), torch.where(live, h2, b_c), tag,
-                               "amin", k)
-        surv = live & ((t1[h1] == tag) | (t2[h2] == tag))
-    dead = ~slab.alive
-    free_slots = torch.nonzero(dead).flatten()   # dead slots in slot order
-    n_free = free_slots.shape[0]
+            slab.src, slab.dst, torch.ones(cap, device=dev), slab.alive,
+            seg.hash_buckets_for(_cap_hint(slab)))
+        surv = candidate_survivors(tables, cu, cv, cand_valid)
+    free_slots = torch.nonzero(~slab.alive).flatten()  # in slot order
     rank = torch.cumsum(surv.to(torch.int64), dim=0) - 1
-    ok = surv & (rank < n_free)
-    slot = free_slots[rank[ok]]
-    src, dst = slab.src.clone(), slab.dst.clone()
-    weight, alive = slab.weight.clone(), slab.alive.clone()
-    src[slot] = cu[ok]
-    dst[slot] = cv[ok]
-    weight[slot] = cand_w.to(torch.float32)[ok]
-    alive[slot] = True
-    n_dropped = surv.sum() - ok.sum()
-    return dataclasses.replace(slab, src=src, dst=dst, weight=weight,
-                               alive=alive), n_dropped
+    ok = surv & (rank < free_slots.shape[0])
+    slab = write_slots(slab, free_slots[rank[ok]], cu[ok], cv[ok],
+                       cand_w[ok])
+    return slab, surv.sum() - ok.sum()
 
 
 def singleton_candidates(slab: GraphSlab, prev: GraphSlab

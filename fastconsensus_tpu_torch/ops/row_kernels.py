@@ -26,7 +26,8 @@ Build: each source compiles with its own ``nvcc`` process (all started
 together) into ``fastconsensus_tpu_torch/_build/`` at first use, keyed by
 the content hash of the source, every header under ``csrc/`` and the
 flags, and loads with ctypes: a plain C entry point
-that launches on the current stream and returns ``cudaGetLastError()``.
+that launches on the current stream of the tensors' device and returns
+``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -232,12 +233,15 @@ def row_totals_cuda(lab: torch.Tensor, w: torch.Tensor
     r, d = lab.shape
     total = torch.empty((r, d), dtype=torch.float32, device=lab.device)
     head = torch.empty((r, d), dtype=torch.bool, device=lab.device)
-    stream = torch.cuda.current_stream(lab.device).cuda_stream
-    LAUNCHES["row_totals"] += 1
-    ROW_TOTALS_SHAPES[(r, d)] += 1
-    _raise_on("row_totals", fn(lab.data_ptr(), w.data_ptr(),
-                               total.data_ptr(), head.data_ptr(), r, d,
-                               stream))
+    # the launch goes to the current device's context: make it the
+    # tensors' (a mesh shard's device need not be the current one)
+    with torch.cuda.device(lab.device):
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        LAUNCHES["row_totals"] += 1
+        ROW_TOTALS_SHAPES[(r, d)] += 1
+        _raise_on("row_totals", fn(lab.data_ptr(), w.data_ptr(),
+                                   total.data_ptr(), head.data_ptr(), r, d,
+                                   stream))
     return total, head
 
 
@@ -312,11 +316,12 @@ def fused_move_rows_cuda(lab, w, sig, scal, d_self: int
     fn = _load("fused_move_rows").fused_move_rows_launch
     best = torch.empty((r,), dtype=torch.int32, device=lab.device)
     want = torch.empty((r,), dtype=torch.bool, device=lab.device)
-    stream = torch.cuda.current_stream(lab.device).cuda_stream
-    LAUNCHES["fused_move_rows"] += 1
-    _raise_on("fused_move_rows", fn(
-        lab.data_ptr(), w.data_ptr(), sig.data_ptr(), scal.data_ptr(),
-        best.data_ptr(), want.data_ptr(), r, d, int(d_self), stream))
+    with torch.cuda.device(lab.device):   # see row_totals_cuda
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        LAUNCHES["fused_move_rows"] += 1
+        _raise_on("fused_move_rows", fn(
+            lab.data_ptr(), w.data_ptr(), sig.data_ptr(), scal.data_ptr(),
+            best.data_ptr(), want.data_ptr(), r, d, int(d_self), stream))
     return best, want
 
 

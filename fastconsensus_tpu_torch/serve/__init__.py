@@ -1,7 +1,6 @@
 """fcserve on the port: the request-serving layer over the consensus
-engine, counterpart of ``fastconsensus_tpu/serve`` (one replica and the
-fleet of replicas behind a router; the mesh-sharded huge tier is not
-ported yet).
+engine, counterpart of ``fastconsensus_tpu/serve`` (one replica with
+its mesh-sharded huge tier, and the fleet of replicas behind a router).
 
 * **serve/bucketer.py** — shape buckets: graphs pad onto a small
   ``{2^k, 3*2^k}`` ladder of (n_nodes, n_edges) classes with every
@@ -15,7 +14,8 @@ ported yet).
   backpressure (HTTP 429); ``pop_batch`` coalesces same-bucket jobs.
 * **serve/shaping.py**, **serve/scheduler.py**, **serve/watchdog.py** —
   SLO shaping, sticky bucket->device routing, the hang watchdog.
-* **serve/pool.py** — one worker per GPU (``torch.cuda.device(i)``).
+* **serve/pool.py** — one worker per GPU (``torch.cuda.device(i)``),
+  and the huge tier's mesh group (``MeshWorker``).
 * **serve/server.py** — the service core and the stdlib HTTP front end
   (``POST /submit``, ``GET /status/<id>``, ``/result/<id>``,
   ``/healthz``, ``/metricsz``, ``/debugz/*``, ``/cachez``).

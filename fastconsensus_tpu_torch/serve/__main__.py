@@ -2,9 +2,10 @@
 instance of the port, with the flags of the reference's serve entry
 point (``fastconsensus_tpu/serve/__main__.py``) and ``--device``
 (default ``cuda``: one worker per GPU; without CUDA the server exits 2
-unless given ``--device cpu``).  Not ported yet: ``--huge-devices`` and
-``--chip-max-edges`` (the mesh tier, with multi-GPU serving) and
-``--hbm-bytes`` (the footprint model that derives that tier's ceiling).
+unless given ``--device cpu``).  ``--huge-devices K --chip-max-edges E``
+reserve the last K devices as the huge tier's mesh group.  Not ported
+yet: ``--chip-max-edges auto`` and ``--hbm-bytes``, which need the
+footprint memory model (ROADMAP.md, Queue 1 item 4): each exits 2.
 
 Binds the stdlib HTTP front end, launches the device workers, and waits
 for SIGTERM/SIGINT; on signal the server **drains**: admissions close
@@ -93,6 +94,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "them), or N workers sharing the CPU (default 1). "
                         "Same-bucket traffic sticks to the worker that "
                         "first ran the bucket (serve/scheduler.py)")
+    p.add_argument("--huge-devices", type=int, default=d.huge_devices,
+                   metavar="K",
+                   help="reserve the last K devices as a mesh group for "
+                        "the huge tier (graphs past --chip-max-edges run "
+                        "edge-sharded across it; default "
+                        f"{d.huge_devices} = tier off)")
+    p.add_argument("--chip-max-edges", default=d.chip_max_edges,
+                   metavar="E",
+                   help="single-chip bucket ceiling: buckets with edge "
+                        "class > E route to the huge tier (requires "
+                        "--huge-devices >= 1).  'auto' (the reference's "
+                        "footprint-derived ceiling) is not ported yet and "
+                        "exits 2")
+    p.add_argument("--hbm-bytes", type=int, default=None, metavar="BYTES",
+                   help="the reference's per-chip memory budget for the "
+                        "footprint model: not ported yet, exits 2")
     p.add_argument("--spill-backlog", type=int, default=d.spill_backlog,
                    metavar="J",
                    help="sticky-affinity spill threshold: a bucket's "
@@ -185,6 +202,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("error: --cache-spill-s needs --cache-file (there is "
                   "nowhere to spill to)", file=sys.stderr)
             return 2
+    chip_max_edges = args.chip_max_edges
+    if isinstance(chip_max_edges, str) and chip_max_edges.lower() != "auto":
+        try:
+            chip_max_edges = int(chip_max_edges)
+        except ValueError:
+            print(f"error: --chip-max-edges {chip_max_edges!r}: "
+                  f"expected an integer or 'auto'", file=sys.stderr)
+            return 2
+    if chip_max_edges is not None and args.huge_devices < 1:
+        print("error: --chip-max-edges needs --huge-devices >= 1 (the "
+              "huge tier is what runs graphs past the ceiling)",
+              file=sys.stderr)
+        return 2
+    if args.huge_devices >= 1 and chip_max_edges is None:
+        print("error: --huge-devices without --chip-max-edges reserves "
+              "a mesh group no bucket can ever route to; set the "
+              "single-chip ceiling too", file=sys.stderr)
+        return 2
+    for flag, given in (("--chip-max-edges auto",
+                         isinstance(chip_max_edges, str)),
+                        ("--hbm-bytes", args.hbm_bytes is not None)):
+        if given:
+            print(f"error: {flag} needs the footprint memory model, which "
+                  f"the port does not have yet (ROADMAP.md, Queue 1 item "
+                  f"4); set an integer --chip-max-edges", file=sys.stderr)
+            return 2
     from fastconsensus_tpu_torch.serve.shaping import ShapingConfig
 
     shaping_defaults = ShapingConfig()
@@ -227,6 +270,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                       prewarm_config=warm_config,
                       device=args.device,
                       devices=args.devices,
+                      huge_devices=args.huge_devices,
+                      chip_max_edges=chip_max_edges,
                       spill_backlog=args.spill_backlog,
                       shaping=shaping,
                       watchdog=watchdog,
@@ -251,8 +296,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         # --device cpu), which never falls back
         print(f"error: {e}", file=sys.stderr)
         return 2
-    say(f"worker pool: {len(service.pool.workers)} worker(s) on "
-        f"{service.device.type}")
+    pool = service.pool
+    say(f"worker pool: {len(pool.chip_workers)} chip worker(s)"
+        + (f" + 1 mesh group of {len(pool.mesh_workers[0].devices)}"
+           f" device(s) (huge tier, bucket ceiling "
+           f"{cfg.chip_max_edges} edges)" if pool.mesh_workers else "")
+        + f" on {service.device.type}")
     if args.warm:
         say(f"pre-warming {len(args.warm)} bucket(s): "
             f"{', '.join(args.warm)}")

@@ -9,10 +9,18 @@ counterpart of ``fastconsensus_tpu/serve/pool.py``.
   ``devices=k`` gives k workers that share the CPU: they stand in for
   the reference's fake XLA devices, so the pool's contracts run in the
   CPU tests.  The card always uses real ordinals;
+* **the mesh-sharded "huge" tier** (:class:`MeshWorker`): the LAST
+  ``huge_devices`` devices form a reserved group that runs jobs SOLO
+  through ``run_consensus(mesh=...)`` with the slab edge-sharded across
+  the group; buckets whose edge class exceeds ``chip_max_edges`` route
+  there.  On CUDA the group takes real ordinals, so one GPU cannot hold
+  a huge tier beside a serving chip; on the CPU the ``devices=k``
+  workers share the host and the group's mesh lists the CPU once per
+  member;
 * **sticky bucket->device routing** (serve/scheduler.py): a dispatcher
   thread pops coalesced batches off the admission queue and routes each
-  to the bucket's home worker; overflow spills to the least-loaded
-  warm-capable worker;
+  to the bucket's home worker within its tier; overflow spills to the
+  least-loaded warm-capable worker;
 * **failure isolation**: an exception that escapes a worker's batch
   machinery (the per-job try/excepts in serve/server.py absorb job-level
   errors; a CUDA kernel that fails to build fails its job and escapes,
@@ -21,11 +29,6 @@ counterpart of ``fastconsensus_tpu/serve/pool.py``.
   (``Job.excluded_devices``), and lets the survivors carry the traffic.
   ``/healthz`` surfaces the cordon; a job that cordons every device
   fails as itself.
-
-Not ported yet: the reference's mesh-sharded "huge" tier
-(``MeshWorker``, ``huge_devices``, ``chip_max_edges``), which waits for
-the multi-GPU slice (ROADMAP.md, Queue 1 item 3).  A config that asks
-for it raises ``ValueError``.
 
 Observability: every worker tags its spans with ``device=i`` and owns a
 thread-filtered :class:`analysis.CompileGuard` feeding
@@ -41,7 +44,7 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Dict, FrozenSet, List, Optional
+from typing import Dict, FrozenSet, List, Optional, Sequence
 
 from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs import flight as obs_flight
@@ -54,20 +57,6 @@ from fastconsensus_tpu_torch.serve.watchdog import (DISABLED_WATCHDOG,
                                                     HangWatchdog)
 
 _logger = logging.getLogger("fastconsensus_tpu_torch")
-
-# Where the mesh tier this pool does not have yet is scheduled.
-MESH_TIER_TODO = ("the mesh-sharded huge tier (MeshWorker, huge_devices, "
-                  "chip_max_edges) is not ported yet: it waits for "
-                  "multi-GPU serving (ROADMAP.md, Queue 1 item 3)")
-
-
-def check_single_chip(cfg) -> None:
-    """Refuse the reference's huge-tier knobs, never ignore them."""
-    if int(cfg.huge_devices) != 0 or cfg.chip_max_edges is not None:
-        raise ValueError(
-            f"huge_devices={cfg.huge_devices}, chip_max_edges="
-            f"{cfg.chip_max_edges}: {MESH_TIER_TODO}")
-
 
 def _cost_spill_weight():
     """The scheduler's per-bucket backlog weight from the cost mirror
@@ -434,6 +423,41 @@ class DeviceWorker(_Worker):
         return contextlib.nullcontext()
 
 
+class MeshWorker(_Worker):
+    """The huge-tier worker: drives a reserved group of devices as one
+    mesh.
+
+    Jobs here run SOLO through ``run_consensus(mesh=...)``: the batch
+    path is single-device (``run_consensus_batch``), and huge graphs are
+    bound by the device, not the dispatch.  The mesh's edge axis spans
+    the whole group, so the slab shards across every reserved device;
+    its ensemble axis stays 1, so any ``n_p`` is admissible.  Slabs are
+    packed on the group's first device (``device``) and sharded from
+    there."""
+
+    kind = "mesh"
+
+    def __init__(self, idx: int, devices: Sequence, service, pool) -> None:
+        super().__init__(idx, service, pool)
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.mesh = None   # built on the worker thread, first use
+
+    def _device_scope(self):
+        from fastconsensus_tpu_torch import parallel
+
+        self.mesh = parallel.make_mesh(ensemble=1, edge=len(self.devices),
+                                       devices=self.devices)
+        return contextlib.nullcontext()
+
+    def describe(self) -> dict:
+        out = super().describe()
+        # the group's device ordinals (the worker idx is the first)
+        out["mesh_devices"] = list(range(self.idx,
+                                         self.idx + len(self.devices)))
+        return out
+
+
 class WorkerPool:
     """Dispatcher + workers + scheduler for one ``ConsensusService``.
 
@@ -441,7 +465,8 @@ class WorkerPool:
     torch-free paths — thin clients, ``-h`` — never import torch through
     the pool.  On CUDA it drives ``devices`` GPUs (default: every one
     ``torch.cuda.device_count()`` reports); on the CPU ``devices``
-    workers (default 1) share the host.
+    workers (default 1) share the host.  The last ``huge_devices`` of
+    them form the huge tier's mesh group.
     """
 
     def __init__(self, service) -> None:
@@ -449,7 +474,6 @@ class WorkerPool:
 
         self.service = service
         cfg = service.config
-        check_single_chip(cfg)
         base = service.device
         if base.type == "cuda":
             avail = torch.cuda.device_count()
@@ -463,14 +487,36 @@ class WorkerPool:
             if n < 1:
                 raise ValueError(f"devices={cfg.devices} must be >= 1")
             devices = [base] * n
+        huge = int(cfg.huge_devices)
+        if huge < 0 or (huge > 0 and huge >= n):
+            raise ValueError(
+                f"huge_devices={huge} must leave at least one serving "
+                f"chip (devices={n})")
+        if cfg.chip_max_edges is not None and huge < 1:
+            raise ValueError(
+                "chip_max_edges needs a huge tier: set huge_devices >= 1")
+        if huge >= 1 and cfg.chip_max_edges is None:
+            # without a ceiling no bucket ever routes huge, so the
+            # reserved mesh group would sit idle forever
+            raise ValueError(
+                "huge_devices reserves a mesh group nothing can reach: "
+                "set chip_max_edges (the single-chip bucket ceiling)")
         self._reg = obs_counters.get_registry()
         self.scheduler = StickyScheduler(
             spill_backlog=cfg.spill_backlog,
             cost_weight=_cost_spill_weight())
-        # device ordinal == worker idx == the fcobs `device=` tag
+        # the LAST huge_devices devices form the reserved mesh group;
+        # chip workers take the rest (device ordinal == worker idx ==
+        # the fcobs `device=` tag)
         self.chip_workers: List[DeviceWorker] = [
-            DeviceWorker(i, devices[i], service, self) for i in range(n)]
-        self.workers: List[_Worker] = list(self.chip_workers)
+            DeviceWorker(i, devices[i], service, self)
+            for i in range(n - huge)]
+        self.mesh_workers: List[MeshWorker] = []
+        if huge:
+            self.mesh_workers.append(
+                MeshWorker(n - huge, devices[n - huge:n], service, self))
+        self.workers: List[_Worker] = \
+            list(self.chip_workers) + list(self.mesh_workers)
         self._prewarm_total = 0
         self._prewarm_done = 0
         self._prewarm_lock = threading.Lock()
@@ -550,7 +596,8 @@ class WorkerPool:
             key = spec.partition(":")[0]
             try:
                 bucket = bucketer.bucket_from_key(key)
-                worker = self.route_bucket(bucket.key())
+                worker = self.route_bucket(bucket.key(),
+                                           huge=self._is_huge(bucket))
             except (ValueError, NoEligibleWorker):
                 # unparseable/ineligible specs still consume a slot so
                 # /healthz progress adds up; the worker's warm-time
@@ -570,19 +617,26 @@ class WorkerPool:
 
     # -- routing ------------------------------------------------------
 
-    def _classify(self, job: Job) -> str:
-        """The bucket key for routing; specs the bucketer rejects route
-        anywhere (they will fail as their own job at pack time)."""
-        try:
-            return job.spec.bucket().key()
-        except Exception:  # noqa: BLE001 — routing must never reject
-            return f"solo:{job.job_id}"
+    def _is_huge(self, bucket) -> bool:
+        ceiling = self.service.config.chip_max_edges
+        return bool(self.mesh_workers) and ceiling is not None \
+            and bucket.e_class > ceiling
 
-    def route_bucket(self, bucket_key: str,
+    def _classify(self, job: Job):
+        """(bucket key, huge?) for routing; specs the bucketer rejects
+        route anywhere (they will fail as their own job at pack time)."""
+        try:
+            bucket = job.spec.bucket()
+            return bucket.key(), self._is_huge(bucket)
+        except Exception:  # noqa: BLE001 — routing must never reject
+            return f"solo:{job.job_id}", False
+
+    def route_bucket(self, bucket_key: str, huge: bool,
                      exclude: FrozenSet[int] = frozenset(),
                      n_jobs: int = 1) -> _Worker:
-        return self.scheduler.route(bucket_key, self.chip_workers,
-                                    exclude=exclude, n_jobs=n_jobs)
+        tier = self.mesh_workers if huge else self.chip_workers
+        return self.scheduler.route(bucket_key, tier, exclude=exclude,
+                                    n_jobs=n_jobs)
 
     def dispatch(self, batch: List[Job]) -> None:
         """Route one coalesced pop.  Jobs requeued after a worker death
@@ -593,16 +647,17 @@ class WorkerPool:
         device call."""
         groups: Dict[tuple, List[Job]] = {}
         for job in batch:
-            bucket_key = self._classify(job)
+            bucket_key, huge = self._classify(job)
             try:
                 group = job.spec.batch_group()
             except Exception:  # noqa: BLE001 — routing must never
                 group = f"solo:{job.job_id}"   # reject (packs solo)
-            sig = (bucket_key, job.excluded(), group)
+            sig = (bucket_key, huge, job.excluded(), group)
             groups.setdefault(sig, []).append(job)
-        for (bucket_key, exclude, _group), jobs in groups.items():
+        for (bucket_key, huge, exclude, _group), jobs in groups.items():
             try:
-                worker = self.route_bucket(bucket_key, exclude=exclude,
+                worker = self.route_bucket(bucket_key, huge,
+                                           exclude=exclude,
                                            n_jobs=len(jobs))
             except NoEligibleWorker as e:
                 for job in jobs:
@@ -676,5 +731,6 @@ class WorkerPool:
     def thread_names(self) -> Dict[int, str]:
         """Raw thread ident -> display name, for the drain-time Perfetto
         export (one named track per device)."""
-        return {w.tid: f"device-{w.idx}" for w in self.workers
-                if w.tid is not None}
+        return {w.tid: (f"device-{w.idx}" if w.kind == "chip"
+                        else f"mesh-{w.idx}")
+                for w in self.workers if w.tid is not None}

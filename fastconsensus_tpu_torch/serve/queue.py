@@ -256,12 +256,22 @@ class AdmissionQueue:
                         now = time.monotonic()
                         have = 0
                         tightest = None
+                        blocks_solo = False
                         for _, _, _, j in self._heap:
                             if group_key(j) == g:
                                 have += 1
                             if tightest is None \
                                     or j.deadline_mono < tightest:
                                 tightest = j.deadline_mono
+                            if not blocks_solo and j is not head:
+                                # a queued mesh-tier job: holding the
+                                # head parks it behind the window while
+                                # its own (separate) tier may be idle
+                                try:
+                                    blocks_solo = shaper.runs_solo(
+                                        j.spec.bucket().key())
+                                except Exception:  # noqa: BLE001 — a
+                                    pass   # probe: stays False
                         if held_group is not None and held_group != g:
                             # a tighter-deadline job of another group
                             # took the head mid-hold: the old episode
@@ -288,7 +298,7 @@ class AdmissionQueue:
                             decision = shaper.hold_decision(
                                 bucket, have=have, max_b=max_b,
                                 slack_s=tightest - now, now=now,
-                                group=g)
+                                group=g, blocks_solo=blocks_solo)
                             if decision.hold_s > 0.0:
                                 hold_until = now + decision.hold_s
                                 hold_target = decision.target

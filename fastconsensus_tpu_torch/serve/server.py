@@ -26,7 +26,11 @@ One resident process keeps the device warm across requests:
 * fcdelta (``submit_delta``): a child graph of a cached parent runs
   warm-started from the parent's partitions with the moves restricted
   to the changed edges' neighborhood (``run_consensus(init_labels=,
-  active_mask=)``), when the policy allows.
+  active_mask=)``), when the policy allows;
+* graphs past the single-chip bucket ceiling (``chip_max_edges``) route
+  to a reserved mesh group (``huge_devices``) and run solo and
+  edge-sharded (``run_consensus(mesh=)``, the "huge" tier) instead of
+  413-ing.
 
 Every job runs on an explicit ``torch.device``: ``ServeConfig.device``
 (default ``"cuda"``, resolved by ``utils/env.resolve_device``, which
@@ -45,9 +49,6 @@ coalesced batches and routes them by sticky bucket->device affinity
 (serve/scheduler.py).  A worker that dies mid-batch is cordoned
 (visible in ``/healthz``) and its jobs requeue with that device
 excluded.
-
-Not ported yet: the mesh-sharded huge tier (``huge_devices``,
-``chip_max_edges``; a config that sets them raises ``ValueError``).
 
 Shutdown: SIGTERM (serve/__main__.py) closes the queue, finishes every
 admitted job, spills the result cache (``cache_path``), optionally
@@ -179,9 +180,15 @@ class ServeConfig:
     # Multi-device serving (serve/pool.py): how many workers the pool
     # runs (None = one per GPU on CUDA, 1 on the CPU).
     devices: Optional[int] = None
-    # The reference's mesh-sharded "huge" tier: not ported yet (multi-GPU
-    # serving); anything but the defaults raises ValueError at start().
+    # Devices reserved (off the END of the device list) for the
+    # mesh-sharded "huge" tier.  0 disables the tier.  On CUDA these are
+    # real ordinals; on the CPU the workers share the host.
     huge_devices: int = 0
+    # Single-chip bucket ceiling: buckets whose edge class exceeds this
+    # route to the huge tier (edge-sharded across the reserved mesh
+    # group) instead of a single device.  Requires huge_devices >= 1.
+    # None = every admitted bucket runs single-device (the max_edges
+    # 413 bound still applies either way).
     chip_max_edges: Optional[int] = None
     # Sticky-affinity spill threshold (serve/scheduler.py): a bucket's
     # batches leave their home device only when the home has more than
@@ -222,8 +229,10 @@ def validate_warm_specs(config: ServeConfig) -> None:
     Checked at server START (raises ValueError -> the CLI exits 2)
     rather than logged at warm time, because each bad shape silently
     wastes a pre-warm no request can reach: a malformed/off-grid key, a
-    rung < 1, or a bucket outside the admission bounds (no request can
-    ever land there).
+    rung < 1, a bucket outside the admission bounds (no request can
+    ever land there), or a bucket past the single-chip ceiling — the
+    mesh tier serves those solo and edge-sharded, so a single-device
+    ladder pre-warm for them warms paths no job will take.
     """
     from fastconsensus_tpu_torch import sizing
 
@@ -241,6 +250,14 @@ def validate_warm_specs(config: ServeConfig) -> None:
                 f"admission bounds (max_nodes={config.max_nodes}, "
                 f"max_edges={config.max_edges} admit buckets up to "
                 f"n{n_cap}_e{e_cap}); no request can ever land in it")
+        if config.chip_max_edges is not None and \
+                bucket.e_class > config.chip_max_edges:
+            raise ValueError(
+                f"--warm {spec!r}: bucket {bucket.key()} exceeds the "
+                f"single-chip ceiling ({config.chip_max_edges} edges); "
+                f"its traffic routes to the mesh tier, which runs solo "
+                f"edge-sharded — a single-device ladder pre-warm there "
+                f"warms paths no job will take")
 
 
 class ConsensusService:
@@ -291,13 +308,11 @@ class ConsensusService:
         """Build the device worker pool and launch it (idempotent).
 
         Raises ValueError on a config the server could never serve
-        correctly — ``--warm`` specs past the admission bounds, or the
-        huge tier's knobs (not ported yet)."""
+        correctly — ``--warm`` specs past the admission bounds or the
+        single-chip ceiling, or a huge tier without its ceiling (and the
+        mirror) — at start, not on first traffic."""
         if self.pool is not None:
             return self
-        from fastconsensus_tpu_torch.serve.pool import check_single_chip
-
-        check_single_chip(self.config)
         validate_warm_specs(self.config)
         if self.config.pin_sizing:
             os.environ.setdefault("FCTPU_DETECT_CALL_MEMBERS", "0")
@@ -337,6 +352,11 @@ class ConsensusService:
         # anyway) — an idle chip turns every held millisecond into
         # real added latency, so the shaper bypasses then
         self.shaper.set_busy_probe(pool.chips_all_busy)
+        if self.config.chip_max_edges is not None:
+            # huge-tier buckets run SOLO on the mesh group whatever the
+            # pop size — holding them coalesces nothing
+            self.shaper.set_solo_probe(
+                lambda key: pool._is_huge(bucketer.bucket_from_key(key)))
         return self
 
     def _spill_loop(self) -> None:
@@ -792,10 +812,14 @@ class ConsensusService:
             detect = get_detector(config.algorithm, gamma=config.gamma)
             warm_capable = bool(config.warm_start and
                                 getattr(detect, "supports_init", False))
+            # the mesh path takes no init_labels: a huge child runs full
+            huge = self.config.chip_max_edges is not None and \
+                child_bucket.e_class > self.config.chip_max_edges
             decision = self.config.delta_policy.decide(
                 int(adds.shape[0] + removes.shape[0]),
                 int(pu.shape[0]), parent, config,
-                parent_bucket.key(), child_bucket.key(), warm_capable)
+                parent_bucket.key(), child_bucket.key(), warm_capable,
+                huge=huge)
             warm_labels = warm_active = key = None
             if decision.mode == "incremental":
                 # copies — nothing below may reference the cache entry
@@ -980,7 +1004,9 @@ class ConsensusService:
     def _drain_group(self, pending: "deque[Job]", worker=None) -> None:
         """Run one coalesced pop: answer cache hits, then execute the
         rest at batch-ladder rungs (one batched device call per rung,
-        solo for a rung of 1)."""
+        solo for a rung of 1).  On a mesh (huge-tier) worker every job
+        runs solo — the batch path is single-device, and huge jobs are
+        device-bound, not dispatch-bound."""
         runnable: List[Job] = []
         for job in pending:
             cached = self.cache.get(job.key, count_miss=False)
@@ -992,8 +1018,9 @@ class ConsensusService:
                 self._record_timeline(job, worker=worker, cached=True)
             else:
                 runnable.append(job)
+        solo_only = worker is not None and worker.kind == "mesh"
         while runnable:
-            rung = bucketer.batch_rung(
+            rung = 1 if solo_only else bucketer.batch_rung(
                 min(len(runnable), self.config.max_batch))
             chunk, runnable = runnable[:rung], runnable[rung:]
             if len(chunk) == 1:
@@ -1251,7 +1278,8 @@ class ConsensusService:
         solo/batched paths (results discarded, cache untouched).  On the
         card that is where a cold worker builds its CUDA kernels and
         its allocator's pools; the builds count under
-        ``serve.prewarm.compiles``.
+        ``serve.prewarm.compiles``.  On a mesh (huge-tier) worker only
+        the solo sharded path warms — batches never run there.
         """
         from fastconsensus_tpu_torch.analysis import CompileGuard
         from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
@@ -1270,6 +1298,10 @@ class ConsensusService:
                     f"--warm {spec!r}: rung must be >= 1")
             max_b = min(int(b), self.config.max_batch)
         bucket = bucketer.bucket_from_key(key)
+        mesh = None
+        if worker is not None and worker.kind == "mesh":
+            mesh = worker.mesh
+            max_b = 1
         # tau defaults from the RESOLVED algorithm, mirroring the
         # request path (_parse_spec's DEFAULT_TAU[alg] setdefault), so
         # the probes run the config the traffic will
@@ -1299,7 +1331,7 @@ class ConsensusService:
                             bucket.n_class, device=self._device_of(worker))
                         slabs.append(slab)
                     if rung == 1:
-                        run_consensus(slabs[0], detect, cfg,
+                        run_consensus(slabs[0], detect, cfg, mesh=mesh,
                                       n_closure=bucket.n_closure)
                     else:
                         run_consensus_batch(
@@ -1322,7 +1354,9 @@ class ConsensusService:
         This is the worker's core, callable directly (tests, embedded
         use; it then runs on the service's base device).  Builds during
         the run are counted live into the fcobs registry
-        (``serve.xla_compiles``); a warm worker counts zero.  ``job``,
+        (``serve.xla_compiles``); a warm worker counts zero.  On a mesh
+        worker the run executes edge-sharded over the reserved device
+        group (``run_consensus(mesh=...)`` — the huge tier).  ``job``,
         when the call serves one, receives the fclat pack/device phase
         stamps.
         """
@@ -1339,6 +1373,8 @@ class ConsensusService:
         cached = self.cache.get(key, count_miss=False)
         if cached is not None:
             return dict(cached, cached=True)
+        mesh = worker.mesh if worker is not None \
+            and worker.kind == "mesh" else None
         slab, bucket = bucketer.pad_to_bucket(
             spec.edges, spec.n_nodes, spec.weights,
             max_nodes=self.config.max_nodes,
@@ -1379,6 +1415,7 @@ class ConsensusService:
                              alg=spec.config.algorithm, device=device):
                 with guard:
                     res = run_consensus(slab, detect, spec.config,
+                                        mesh=mesh,
                                         n_closure=bucket.n_closure,
                                         **run_kwargs)
         finally:

@@ -203,6 +203,7 @@ class TrafficShaper:
             else obs_counters.get_registry()
         self._parallelism = parallelism
         self._busy_probe: Optional[Callable[[], bool]] = None
+        self._solo_probe: Optional[Callable[[str], bool]] = None
         # Cold-start device-seconds model: bucket key -> est seconds or
         # None.  Default resolves lazily to the torch-free
         # mirror (analysis/cost.py static_service_prior) on first cold
@@ -245,6 +246,24 @@ class TrafficShaper:
             return bool(self._busy_probe())
         except Exception:  # noqa: BLE001 — a mid-drain pool must not
             return True    # wedge the pop path
+
+    def set_solo_probe(self, fn: Callable[[str], bool]) -> None:
+        """Install the pool's bucket-runs-solo probe (True for buckets
+        the mesh/huge tier serves): those jobs execute one at a time
+        regardless of coalescing, so a hold buys a bigger pop that
+        still runs solo — pure added latency.  hold_decision bypasses
+        them."""
+        self._solo_probe = fn
+
+    def runs_solo(self, bucket: Optional[str]) -> bool:
+        """Whether this bucket's jobs execute solo (mesh/huge tier) —
+        the queue also consults it for the heap it would delay."""
+        if bucket is None or self._solo_probe is None:
+            return False
+        try:
+            return bool(self._solo_probe(bucket))
+        except Exception:  # noqa: BLE001 — an unparseable key routes
+            return False   # chip-tier; the pop will sort it out
 
     def _workers(self) -> int:
         if self._parallelism is None:
@@ -329,7 +348,8 @@ class TrafficShaper:
     def hold_decision(self, bucket: Optional[str], have: int,
                       max_b: int, slack_s: float,
                       now: Optional[float] = None,
-                      group: Optional[str] = None) -> HoldDecision:
+                      group: Optional[str] = None,
+                      blocks_solo: bool = False) -> HoldDecision:
         """Should ``pop_batch`` wait for a larger rung?
 
         ``have`` is the same-group jobs already queued, ``slack_s`` the
@@ -338,9 +358,10 @@ class TrafficShaper:
         ``group`` the head's batch group: the fill prediction prefers
         the GROUP arrival rate, because only same-group arrivals can
         join the rung — the bucket rate is just the fallback for a
-        group with no history yet.  (The reference also bypasses for
-        its mesh tier, which runs jobs solo; the port has no such tier
-        yet.)  The hold window is
+        group with no history yet.  ``blocks_solo`` means a mesh-tier
+        job is queued behind the head: its idle tier cannot be probed
+        cheaply, so the decision bypasses rather than park work a
+        separate tier could be running.  The hold window is
         ``min(hold_margin x expected fill, max_hold_s, slack - service
         estimate)``; when the expected fill cannot complete inside that
         bound the decision is an instant bypass — holding a doomed rung
@@ -352,6 +373,14 @@ class TrafficShaper:
         target = next_rung(have, max_b)
         if target is None:
             return HoldDecision(0.0, have, "rung_full")
+        if self.runs_solo(bucket):
+            # mesh/huge-tier buckets execute solo whatever the pop
+            # size: a bigger rung gains nothing, the wait is pure loss
+            self._reg.inc("serve.shape.bypass")
+            return HoldDecision(0.0, target, "solo_tier")
+        if blocks_solo:
+            self._reg.inc("serve.shape.bypass")
+            return HoldDecision(0.0, target, "blocks_solo_tier")
         if not self.hold_is_free():
             # an idle worker means a held job pays the wait for real
             # (it could be running RIGHT NOW); dispatch immediately —

@@ -228,6 +228,43 @@ def test_consensus_on_card_equals_cpu(card, monkeypatch, path):
         assert a["n_alive"] == b["n_alive"]
 
 
+def test_mesh_on_card_equals_unsharded_run(card, monkeypatch):
+    """A (p=1, e=2) mesh listing the card twice (and, on a machine with
+    two or more GPUs, (1, k) and (2, k // 2) meshes over distinct
+    ordinals) against the unsharded scatter run: the shards' kernels
+    launch on their tensors' device."""
+    from fastconsensus_tpu_torch import parallel
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+
+    edges, n = _planted(7)
+    monkeypatch.setenv("FCTPU_MOVE_PATH", "hybrid")
+    cfg = ConsensusConfig(n_p=4, max_rounds=3, seed=5,
+                          closure_sampler="scatter")
+    det = get_detector("louvain")
+    base = run_consensus(pack_edges(edges, n, device=card), det, cfg)
+    meshes = [parallel.make_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)]
+    k = torch.cuda.device_count()
+    if k >= 2:
+        # distinct ordinals: the (2, k // 2) mesh's second ensemble shard
+        # detects on a card that is not the current device
+        meshes += [parallel.make_mesh(1, k), parallel.make_mesh(2, k // 2)]
+    for mesh in meshes:
+        rk.reset_launches()
+        res = run_consensus(pack_edges(edges, n, device=card), det, cfg,
+                            mesh=mesh)
+        assert rk.LAUNCHES["row_totals"] > 0
+        assert res.rounds == base.rounds
+        np.testing.assert_array_equal(np.stack(res.partitions),
+                                      np.stack(base.partitions))
+        c = base.graph.capacity
+        for name in ("src", "dst", "weight", "alive"):
+            assert torch.equal(getattr(res.graph, name)[:c].cpu(),
+                               getattr(base.graph, name).cpu())
+
+
 def _planted(seed, n=1500, m=30000, p_out=0.03):
     rng = np.random.default_rng(seed)
     truth = rng.integers(0, 10, n)
@@ -450,6 +487,63 @@ def test_service_on_card_equals_cpu_service(card):
                                       np.stack(c["partitions"]))
     np.testing.assert_array_equal(np.stack(out["cuda"][0]["partitions"]),
                                   np.stack(out["cuda"][1]["partitions"]))
+
+
+def test_huge_tier_on_distinct_gpus_equals_the_unsharded_run(card):
+    """The huge tier on real ordinals: a service over every GPU with all
+    but the first as the mesh group serves a graph past the ceiling on
+    the group (edge-sharded across distinct cards) and a small one on
+    the chip worker, each equal to its unsharded run on the card.  Needs
+    two or more GPUs: one card cannot hold the tier beside a serving
+    card (the pool refuses it)."""
+    import time
+
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.serve.jobs import JobSpec
+    from fastconsensus_tpu_torch.serve.server import (ConsensusService,
+                                                      ServeConfig)
+
+    k = torch.cuda.device_count()
+    if k < 2:
+        with pytest.raises(ValueError, match="must leave at least one "
+                                             "serving chip"):
+            ConsensusService(ServeConfig(
+                pin_sizing=False, huge_devices=1,
+                chip_max_edges=96)).start()
+        pytest.skip("the huge tier on distinct GPUs needs two or more")
+    edges, n = _planted(9, n=600, m=6000)
+    small = np.stack([np.arange(30), (np.arange(30) + 1) % 30], 1)
+    # the mesh path samples wedges with the scatter sampler: so does
+    # the unsharded run it is held to
+    cfg = ConsensusConfig(n_p=4, max_rounds=3, seed=2,
+                          closure_sampler="scatter")
+    svc = ConsensusService(ServeConfig(pin_sizing=False, devices=k,
+                                       huge_devices=k - 1,
+                                       chip_max_edges=96)).start()
+    try:
+        jobs = [svc.submit(JobSpec(edges=e, n_nodes=m, config=cfg))
+                for e, m in ((edges, n), (small, 30))]
+        deadline = time.monotonic() + 300
+        while any(j.state not in ("done", "failed") for j in jobs):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert [j.state for j in jobs] == ["done", "done"], \
+            [j.error for j in jobs]
+        assert [j.result["tier"] for j in jobs] == ["mesh", "chip"]
+        assert svc.pool.mesh_workers[0].mesh.shape == {"p": 1, "e": k - 1}
+    finally:
+        assert svc.drain(120)
+    for job, (e, m) in zip(jobs, ((edges, n), (small, 30))):
+        slab, bucket = bucketer.pad_to_bucket(e, m, device=card)
+        ref = run_consensus(slab, get_detector("louvain"), cfg,
+                            n_closure=bucket.n_closure)
+        assert job.result["rounds"] == ref.rounds
+        for served, raw in zip(job.result["partitions"], ref.partitions):
+            _, c = np.unique(np.asarray(raw)[:m], return_inverse=True)
+            np.testing.assert_array_equal(served, c.astype(np.int32))
 
 
 def test_two_replica_fleet_on_card_serves_the_bucketed_run(card, tmp_path):

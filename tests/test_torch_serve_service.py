@@ -224,13 +224,15 @@ def test_server_without_cuda_exits_2_with_the_reason(tmp_path):
 
 
 def test_unported_mesh_tier_knobs_raise():
-    for over in ({"huge_devices": 1}, {"chip_max_edges": 4096}):
-        svc = port_service(**over)
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
-            svc.start()
-    proc = subprocess.run(
-        [sys.executable, "-m", "fastconsensus_tpu_torch.serve",
-         "--huge-devices", "1"], cwd=REPO, capture_output=True, text=True,
-        timeout=60)
-    assert proc.returncode == 2
-    assert "unrecognized arguments: --huge-devices" in proc.stderr
+    """The footprint-derived ceiling (``--chip-max-edges auto``) and its
+    budget (``--hbm-bytes``) need the memory model that is not ported
+    yet: each exits 2 naming where it is scheduled, never ignored."""
+    for flags in (["--chip-max-edges", "auto"],
+                  ["--chip-max-edges", "4096", "--hbm-bytes", "1000000"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "fastconsensus_tpu_torch.serve",
+             "--device", "cpu", "--huge-devices", "1"] + flags, cwd=REPO,
+            capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 2
+        assert "needs the footprint memory model" in proc.stderr
+        assert "Queue 1 item 4" in proc.stderr
