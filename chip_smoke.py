@@ -157,14 +157,35 @@ Phases (any failure exits non-zero without the final line):
              (solo and karate jobs pad_to_bucket + run_consensus, batch
              jobs their solo runs, the delta the library path under the
              replica's decision); the phase's wall
+20. footprint the footprint memory model (analysis/entrypoints.py)
+             against the card: each serving kind's model at the job's
+             own packed slab within [1, 2]x of the peak allocated over
+             the baseline taken before its arguments (after a warm-up
+             call), and the bucket's worst case at least the model:
+             batch A's four jobs (one warm batch round and the batched
+             final detect, B = 4, n_p 20, the matmul sweep), lfr10k's
+             bucket solo (detect, tail, one round; n_p 20) and lfr100k's
+             (detect, one chunk of 8 members, 4 sweeps), both on hybrid
+             rows re-derived from the degrees as a served run re-derives
+             them; max_memory_reserved printed; the serve defaults'
+             chip ceilings at the card's memory and at a budget that
+             fits lfr10k's bucket and not lfr100k's; the server's
+             --chip-max-edges auto (covering the whole ladder at the
+             card's memory: exit 2, as the reference's) and an
+             over-ceiling explicit --chip-max-edges (exit 2), in
+             process; with two or more devices, python -m
+             fastconsensus_tpu_torch.serve --huge-devices 1
+             --chip-max-edges auto --hbm-bytes B starting on the
+             derived ceiling and draining on SIGTERM
 
 Kernel launch counters are reset just before phases 6-7, each of
 phase 8's runs, phases 9-10, 13, 14 (its uninterrupted run), 15 (its
-profiled run), 16 (its incremental card run), 17 and 18 (its part A) and
-read just after: phases 7, 9-10, 13-16 and 18 and phase 8's sharded
-runs must launch ``row_totals``, phase 6 ``fused_move_rows``; phase 17's
-bucketed slabs take the matmul and hash sweeps, which launch no kernel
-of the port (a job split off to a solo run may); phase 18's lfr10k jobs
+profiled run), 16 (its incremental card run), 17, 18 (its part A) and
+20 (its lfr10k and lfr100k parts) and read just after: phases 7, 9-10,
+13-16, 18 and 20 and phase 8's sharded runs must launch
+``row_totals``, phase 6 ``fused_move_rows``; phase 17's bucketed slabs
+take the matmul and hash sweeps, which launch no kernel of the port (a
+job split off to a solo run may); phase 18's lfr10k jobs
 start on the hash sweep and take hybrid rows once their budgets are
 re-derived.  Phase 19's replicas launch ``row_totals`` in their own
 processes, fresh ones, and report their counts in ``/metricsz``
@@ -2608,6 +2629,286 @@ def phase_fleet(state):
     log(f"fleet: phase wall {wall:.2f}s")
 
 
+def _to_device(slab):
+    """A host slab's copy on the card (statics kept)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        slab, **{f: getattr(slab, f).to(DEVICE)
+                 for f in ("src", "dst", "weight", "alive")})
+
+
+def _rederived(slab):
+    """``slab`` with its row budgets re-derived from its degrees, as
+    ``run_consensus`` re-derives them once a bucketed job's budgets
+    starve (``consensus._JobPolicy.regrow_budgets``)."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.graph import (derive_agg_sizing,
+                                               derive_dense_sizing,
+                                               derive_hybrid_sizing)
+
+    deg = slab.degrees().cpu().numpy().astype(np.int64)
+    n_alive = int(slab.num_alive())
+    d_hyb, hub_cap = derive_hybrid_sizing(deg, slab.n_nodes, n_alive)
+    return slab.with_statics(d_cap=derive_dense_sizing(deg, slab.n_nodes),
+                             d_hyb=d_hyb, hub_cap=hub_cap,
+                             agg_cap=derive_agg_sizing(n_alive))
+
+
+def _held_peak(make_args, call):
+    """``call(*make_args())`` once to warm up (the card's persistent
+    buffers join the baseline), then measured: ``(peak allocated bytes
+    over the baseline taken before the arguments were made, peak
+    reserved bytes)``, so the arguments count, as the model counts them.
+    ``(None, None)`` off the card."""
+    import torch
+
+    out = call(*make_args())
+    del out
+    sync()
+    if DEVICE != "cuda":
+        return None, None
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    out = call(*args)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved()
+    del out, args
+    return peak, reserved
+
+
+def phase_footprint(state):
+    """The footprint memory model against the card.  Each kind's model
+    at the job's own packed slab (``analysis/entrypoints.slab_peak_bytes``)
+    is held within [1, 2]x of the peak allocated over the baseline of
+    that part of a served job, run through the library at its bucket,
+    and the bucket's worst case (``serving_peak_bytes``) must be at
+    least it: batch A's four jobs (``batch`` and ``detect-batch``, the
+    matmul sweep, B = 4), lfr10k's bucket solo (``rounds``, ``tail``,
+    ``detect``) and lfr100k's (``detect``, one chunk of 8 members, 4
+    sweeps), both with their hybrid rows re-derived as a served run
+    re-derives them, which launches ``row_totals``.  Then the serve
+    defaults' chip ceilings at the card's memory and at a budget that
+    fits lfr10k's bucket but not lfr100k's, and the server's
+    ``--chip-max-edges auto`` / ``--hbm-bytes`` outcomes."""
+    import signal
+    import socket
+
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch.analysis import entrypoints as ep
+    from fastconsensus_tpu_torch.analysis import footprint as fp
+    from fastconsensus_tpu_torch.engine import (consensus_batch_round,
+                                                consensus_round,
+                                                consensus_tail,
+                                                detect_stacked, round_keys)
+    from fastconsensus_tpu_torch.graph import stack_slabs
+    from fastconsensus_tpu_torch.models.louvain import make_louvain
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.serve.__main__ import main as serve_main
+    from fastconsensus_tpu_torch.serve.server import ServeConfig
+    from fastconsensus_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    n_p = state.get("footprint_n_p", 20)
+    tau, delta, ctau = 0.2, 0.02, 0.2
+    warm = get_detector("louvain").warm_variant
+    rows = []
+
+    def held(job, kind, bucket, slab, b, members, make_args, call):
+        model = ep.slab_peak_bytes(kind, slab, b=b, mode="warm",
+                                   n_p=members, n_closure=bucket.n_closure)
+        worst = ep.serving_peak_bytes(kind, bucket.n_class, bucket.e_class,
+                                      b=b, mode="warm", n_p=members)
+        t0 = time.perf_counter()
+        peak, reserved = _held_peak(make_args, call)
+        secs = time.perf_counter() - t0
+        ratio = "n/a" if peak is None else f"{model['peak'] / peak:.3f}"
+        log(f"footprint {kind} ({job}, bucket {bucket.key()}, B {b}, n_p "
+            f"{members}, {model['path']} sweep, d_hyb {slab.d_hyb}, "
+            f"hub_cap {slab.hub_cap}, chunk {model['chunk']}): peak over "
+            f"the baseline {peak} bytes, max_memory_reserved {reserved}, "
+            f"model {model['peak']} ({ratio}x), bucket worst case "
+            f"{worst['peak']} ({worst['path']} sweep), {secs:.2f}s")
+        rows.append(dict(job=job, kind=kind, bucket=bucket.key(), b=b,
+                         peak=peak, reserved=reserved, model=model["peak"],
+                         worst=worst["peak"], path=model["path"],
+                         chunk=model["chunk"]))
+        check(worst["peak"] >= model["peak"],
+              f"{kind} ({job}): bucket worst case {worst['peak']} < the "
+              f"model at the job's slab {model['peak']}")
+        return model
+
+    # batch A: four emailEu stand-ins in one bucket, B = 4, warm round
+    pads = [bucketer.pad_to_bucket(e, n, device="cpu")
+            for e, n in _batch_graphs("A")]
+    check(len({b.key() for _, b in pads}) == 1, "batch A: several buckets")
+    bucket_a, slabs_a = pads[0][1], [s for s, _ in pads]
+    sing_a = torch.arange(bucket_a.n_class).expand(
+        n_p, bucket_a.n_class).clone()
+    keys_a = [prng.key(s, DEVICE) for s in BATCH_SEEDS]
+    round_a = [prng.stream(k, prng.STREAM_ROUND, 0) for k in keys_a]
+    final_a = torch.cat([prng.partition_keys(
+        prng.stream(k, prng.STREAM_FINAL), n_p) for k in keys_a])
+    held("batch A", "batch", bucket_a, slabs_a[0], 4, n_p,
+         lambda: ([_to_device(s) for s in slabs_a],
+                  [sing_a.to(DEVICE) for _ in slabs_a]),
+         lambda slabs, labs: consensus_batch_round(
+             slabs, round_a, warm, n_p, tau, delta, bucket_a.n_closure,
+             labs, [False] * 4, labs, closure_tau=ctau))
+    held("batch A", "detect-batch", bucket_a, slabs_a[0], 4, n_p,
+         lambda: ([_to_device(s) for s in slabs_a],
+                  torch.cat([sing_a] * 4).to(DEVICE)),
+         lambda slabs, init: detect_stacked(warm, stack_slabs(slabs),
+                                            final_a, init))
+
+    # lfr10k's and lfr100k's buckets on their re-derived hybrid rows
+    rk.reset_launches()
+    data = np.load(ROOT / "bench_data" / "lfr10k.npz")
+    slab10, bucket10 = bucketer.pad_to_bucket(
+        data["edges"], int(data["labels"].shape[0]), device="cpu")
+    slab10 = _rederived(slab10)
+    check(ep.path_of(slab10) == "hybrid", "lfr10k: not on hybrid rows")
+    n10 = slab10.n_nodes
+    sing10 = torch.arange(n10).expand(n_p, n10).clone()
+    key10 = prng.key(0, DEVICE)
+    keys10, k_closure = round_keys(key10, n_p)
+    lab10 = warm(_to_device(slab10), keys10, sing10.to(DEVICE)).cpu()
+    held("lfr10k", "detect", bucket10, slab10, 1, n_p,
+         lambda: (_to_device(slab10), sing10.to(DEVICE)),
+         lambda s, init: warm(s, keys10, init))
+    held("lfr10k", "tail", bucket10, slab10, 1, n_p,
+         lambda: (_to_device(slab10), lab10.to(DEVICE), sing10.to(DEVICE)),
+         lambda s, lab, prev: consensus_tail(
+             s, lab, k_closure, n_p, tau, delta, bucket10.n_closure,
+             closure_tau=ctau, prev_labels=prev))
+    held("lfr10k", "rounds", bucket10, slab10, 1, n_p,
+         lambda: (_to_device(slab10), sing10.to(DEVICE)),
+         lambda s, lab: consensus_round(
+             s, key10, warm, n_p, tau, delta, bucket10.n_closure,
+             init_labels=lab, closure_tau=ctau, prev_labels=lab))
+    edges100, truth100 = cell_inputs("lfr100k", state)[:2]
+    slab100, bucket100 = bucketer.pad_to_bucket(
+        edges100, int(truth100.shape[0]), device="cpu")
+    slab100 = _rederived(slab100)
+    check(ep.path_of(slab100) == "hybrid", "lfr100k: not on hybrid rows")
+    m100 = 8
+    sing100 = torch.arange(slab100.n_nodes).expand(
+        m100, slab100.n_nodes).clone()
+    keys100 = prng.partition_keys(prng.key(5, DEVICE), m100)
+    det4 = make_louvain(max_sweeps=4).warm_variant
+    model100 = held("lfr100k", "detect", bucket100, slab100, 1, m100,
+                    lambda: (_to_device(slab100), sing100.to(DEVICE)),
+                    lambda s, init: det4(s, keys100, init))
+    check(model100["chunk"] == m100,
+          f"lfr100k: {m100} members in chunks of {model100['chunk']}")
+    launches = rk.LAUNCHES["row_totals"]
+    shapes = dict(rk.ROW_TOTALS_SHAPES)
+    log(f"footprint: row_totals launches {launches}, by shape "
+        f"{sorted(shapes.items())}")
+    check(launches > 0, "footprint: the hybrid rows never launched "
+                        "row_totals")
+    state.setdefault("main_paths", {})["footprint"] = dict(
+        launches=launches, by_shape=check_and_time_shapes(shapes, seed=8))
+    state["footprint"] = rows
+    if DEVICE == "cuda":
+        bad = [f"{r['kind']} ({r['job']})" for r in rows
+               if not r["peak"] <= r["model"] <= 2 * r["peak"]]
+        check(not bad, f"footprint model outside [peak, 2 x peak] for "
+                       f"{bad}")
+
+    # the serve defaults' chip ceilings
+    d = ServeConfig()
+    spec = fp.SurfaceSpec(max_nodes=d.max_nodes, max_edges=d.max_edges,
+                          max_batch=d.max_batch, n_p=n_p)
+    card = torch.cuda.get_device_properties(0).total_memory \
+        if DEVICE == "cuda" else fp.CHIP_HBM_BYTES_DEFAULT
+    t0 = time.perf_counter()
+    at_card = fp.derive_chip_ceiling(card, spec)
+    card_s = time.perf_counter() - t0
+    small = max(p for e in fp.edge_classes(spec)
+                if e <= bucket10.e_class
+                and (p := fp.edge_class_peak(e, spec)) is not None)
+    at_small = fp.derive_chip_ceiling(small, spec)
+    log(f"footprint: chip ceiling of the serve defaults (max_nodes "
+        f"{d.max_nodes}, max_edges {d.max_edges}, max_batch "
+        f"{d.max_batch}, n_p {n_p}) at the card's {card} bytes: "
+        f"{at_card} edges ({card_s:.2f}s); at {small} bytes: {at_small} "
+        f"edges (lfr10k's bucket {bucket10.key()} fits, lfr100k's "
+        f"{bucket100.key()} does not)")
+    check(at_small is not None and
+          bucket10.e_class <= at_small < bucket100.e_class,
+          f"ceiling {at_small} at {small} bytes does not split lfr10k's "
+          f"and lfr100k's buckets")
+    state["footprint_ceilings"] = dict(card=card, at_card=at_card,
+                                       small=small, at_small=at_small)
+
+    # the server's flags, as the reference's server answers them
+    def serve_rc(args):
+        import contextlib
+        import io
+
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = serve_main(["--device", DEVICE, "--port", "0",
+                             "--huge-devices", "1", "--quiet",
+                             "--warm-config", json.dumps({"n_p": n_p})]
+                            + args)
+        return rc, err.getvalue()
+
+    top = fp.grid_up(d.max_edges, fp.MIN_EDGE_CLASS)
+    if at_card is not None and at_card >= top:
+        rc, err = serve_rc(["--chip-max-edges", "auto"])
+        log(f"footprint: serve --huge-devices 1 --chip-max-edges auto: "
+            f"exit {rc}: {err.strip()[:200]}")
+        check(rc == 2 and "covers every admissible bucket" in err,
+              f"auto at the card's memory: exit {rc}: {err}")
+    over = fp.grid_up(at_small + 1, fp.MIN_EDGE_CLASS)
+    rc, err = serve_rc(["--chip-max-edges", str(over), "--hbm-bytes",
+                        str(small)])
+    log(f"footprint: serve --chip-max-edges {over} --hbm-bytes {small}: "
+        f"exit {rc}: {err.strip()[:200]}")
+    check(rc == 2 and "exceeds the derived single-chip ceiling" in err,
+          f"an over-ceiling --chip-max-edges: exit {rc}: {err}")
+    if DEVICE == "cuda" and torch.cuda.device_count() >= 2:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        server_log = OUT / "footprint_server.log"
+        with open(server_log, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "fastconsensus_tpu_torch.serve",
+                 "--port", str(port), "--huge-devices", "1",
+                 "--chip-max-edges", "auto", "--hbm-bytes", str(small),
+                 "--warm-config", json.dumps({"n_p": n_p})],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                stdout=fh, stderr=subprocess.STDOUT)
+        try:
+            _wait_for("footprint: server start",
+                      lambda: "listening on" in server_log.read_text(),
+                      proc, timeout=120)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=120)
+        text = server_log.read_text()
+        log(f"footprint: serve --chip-max-edges auto --hbm-bytes {small}: "
+            f"{[ln for ln in text.splitlines() if 'auto ->' in ln]}, "
+            f"exit {proc.returncode} on SIGTERM")
+        check(f"--chip-max-edges auto -> {at_small} edges" in text and
+              proc.returncode == 0, f"auto server:\n{text[-2000:]}")
+    else:
+        log("footprint: the server with the huge tier needs a second "
+            "device; skipped on this machine")
+    log(f"footprint: phase body {time.perf_counter() - t_phase:.2f}s")
+
+
 def phase_profile(state):
     """Not a default phase: one cell's consensus run (``--profile-cell``,
     default lfr100k; ``--n-p``, ``--max-rounds`` or ``--leiden-rounds``)
@@ -2729,7 +3030,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "infomap_lfr10k": phase_infomap_lfr10k, "resume": phase_resume,
           "recovery": phase_recovery, "trace": phase_trace,
           "delta": phase_delta, "batch": phase_batch, "serve": phase_serve,
-          "fleet": phase_fleet}
+          "fleet": phase_fleet, "footprint": phase_footprint}
 EXTRA_PHASES = {"profile": phase_profile}
 
 

@@ -138,6 +138,84 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
     return slab, stats
 
 
+# Bytes of an int64 word, and of a slab slot: src, dst (int64), weight
+# (float32) and alive (bool).
+_W = 8
+SLAB_SLOT_BYTES = _W + _W + 4 + 1
+# Scratch of a stable int64 sort, in words a sorted entry: the keys'
+# and the indices' second buffers.
+_SORT_SCRATCH_WORDS = 2
+# Words live at the peak of one _hash_mix: the input's low word, mul32's
+# lo, hi and shifted hi, and the running mix.
+_MIX_WORDS = 6
+# Words live at the peak of sample_wedges per sample: a threefry draw's
+# counters and state (six), the anchors, offsets, degrees, the two
+# partner positions and their temporaries (seven).
+_WEDGE_WORDS = 13
+
+
+def tail_temp_bytes(slab: GraphSlab, n_p: int, n_closure: int) -> int:
+    """Peak bytes :func:`consensus_tail` (the CSR sampler) allocates over
+    its inputs, on an unconverged round (closure runs): the largest of
+    its phases, each the tensors live across it plus its own
+    temporaries, with ``E`` slots, ``N`` nodes, ``P = n_p`` members and
+    ``L = n_closure`` wedge samples:
+
+    * co-membership (``comembership_counts``): the int64 count and sum
+      ``[E]`` and a chunk of ``s`` members' two int64 endpoint gathers
+      and their compare, ``17 s E``;
+    * the weight update and threshold: the counts (float32, kept to the
+      quality bundle) and two float32 weights and masks;
+    * the CSR build: the directed copy (42 bytes a slot), the sort key,
+      order and sorted key, the sort's scratch and the neighbours;
+    * the wedge sample (``_WEDGE_WORDS`` int64 words a sample) beside
+      the CSR, then the candidates' co-membership;
+    * the insertion: the slab's two float32 hash tables, the hashed
+      candidates' two int64 tag tables and the slab written anew (21
+      bytes a slot);
+    * singleton repair: two directed copies and their segment scatters;
+    * the quality bundle: per-member modularity's two int64 endpoint
+      gathers, compare and float32 weights, ``21 P E``, and the float64
+      community degrees.
+
+    The new slab it returns is counted in the last phases."""
+    from fastconsensus_tpu_torch.models.louvain import _cap_hint
+    from fastconsensus_tpu_torch.ops import segment as seg
+
+    e, n, p, lc = slab.capacity, slab.n_nodes, int(n_p), int(n_closure)
+
+    def comember(k: int) -> int:
+        step = max(1, cops._COUNT_ELEMS // max(1, k))
+        return 2 * _W * k + 17 * min(p, step) * k
+
+    counts = 4 * e
+    thresholded = counts + 4 * e + e                 # weight, alive
+    cand = (2 * _W + 1) * lc                         # cu, cv, cvalid
+    b_slab = seg.hash_buckets_for(_cap_hint(slab))
+    b_cand = seg.hash_buckets_for(lc)
+    directed = 2 * SLAB_SLOT_BYTES * e
+    degrees = directed + 4 * _W * e + _W * n         # node-sum segments
+    phases = (
+        comember(e),
+        counts + 2 * (4 * e + e),
+        thresholded + directed + (3 + _SORT_SCRATCH_WORDS) * 2 * _W * e
+        + 2 * _W * e + _W * n,
+        thresholded + 2 * _W * e + _W * n + _WEDGE_WORDS * _W * lc,
+        thresholded + cand + comember(lc),
+        thresholded + cand + 4 * lc + 2 * 4 * b_slab + max(
+            8 * e + (2 + _MIX_WORDS) * _W * e,
+            2 * _W * b_cand + (4 + _MIX_WORDS) * _W * lc,
+            _W * e + SLAB_SLOT_BYTES * e + 5 * _W * lc),
+        counts + SLAB_SLOT_BYTES * e + cand + 4 * lc + max(
+            degrees, directed + 4 * 2 * _W * e),
+        counts + 2 * SLAB_SLOT_BYTES * e + cand + 4 * lc + 4 * _W * n
+        + _W * e,
+        counts + SLAB_SLOT_BYTES * e + cand + 4 * lc + max(
+            degrees, 12 * e + (2 * _W + 1 + 4) * p * e
+            + (_W + 4 + 4) * p * n))
+    return int(max(phases))
+
+
 def _maybe_align_keys(keys: torch.Tensor, align: bool) -> torch.Tensor:
     """Give every ensemble member member 0's key when ``align`` is true."""
     if not align:

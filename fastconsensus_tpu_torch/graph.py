@@ -166,9 +166,13 @@ def derive_hybrid_sizing(degree: np.ndarray, n_nodes: int,
     best = int(np.argmin(cost))
     if int(cost[best]) >= 8 * 2 * n_edges:
         return 0, 0
-    d_hyb = int(cands[best])
-    hub_cap = int((((3 * int(hub_mass[best])) // 2 + 64 + 7) // 8) * 8)
-    return d_hyb, hub_cap
+    return int(cands[best]), hub_cap_for(int(hub_mass[best]))
+
+
+def hub_cap_for(hub_mass: int) -> int:
+    """Hub-prefix capacity for ``hub_mass`` directed hub edges: 50%
+    closure slack plus 64, rounded up to a multiple of 8."""
+    return int((((3 * int(hub_mass)) // 2 + 64 + 7) // 8) * 8)
 
 
 def derive_agg_sizing(n_alive: int) -> int:

@@ -3,9 +3,10 @@ instance of the port, with the flags of the reference's serve entry
 point (``fastconsensus_tpu/serve/__main__.py``) and ``--device``
 (default ``cuda``: one worker per GPU; without CUDA the server exits 2
 unless given ``--device cpu``).  ``--huge-devices K --chip-max-edges E``
-reserve the last K devices as the huge tier's mesh group.  Not ported
-yet: ``--chip-max-edges auto`` and ``--hbm-bytes``, which need the
-footprint memory model (ROADMAP.md, Queue 1 item 4): each exits 2.
+reserve the last K devices as the huge tier's mesh group;
+``--chip-max-edges auto`` derives E from the footprint memory model
+(``analysis/footprint.derive_chip_ceiling``) at the card's memory or at
+``--hbm-bytes``, which also holds an explicit E to the model.
 
 Binds the stdlib HTTP front end, launches the device workers, and waits
 for SIGTERM/SIGINT; on signal the server **drains**: admissions close
@@ -104,12 +105,16 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="E",
                    help="single-chip bucket ceiling: buckets with edge "
                         "class > E route to the huge tier (requires "
-                        "--huge-devices >= 1).  'auto' (the reference's "
-                        "footprint-derived ceiling) is not ported yet and "
-                        "exits 2")
+                        "--huge-devices >= 1).  'auto' derives the "
+                        "largest ladder edge class whose every kind fits "
+                        "one card from the footprint memory model "
+                        "(analysis/footprint.py)")
     p.add_argument("--hbm-bytes", type=int, default=None, metavar="BYTES",
-                   help="the reference's per-chip memory budget for the "
-                        "footprint model: not ported yet, exits 2")
+                   help="per-card memory budget for the footprint model "
+                        "(default: the serving card's total memory; on "
+                        "--device cpu the model's synthetic 24 GiB); with "
+                        "an integer --chip-max-edges, refuse a ceiling "
+                        "the model says would run out of memory")
     p.add_argument("--spill-backlog", type=int, default=d.spill_backlog,
                    metavar="J",
                    help="sticky-affinity spill threshold: a bucket's "
@@ -168,6 +173,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _device_hbm_bytes(device: str) -> Optional[int]:
+    """The serving cards' memory: the smallest ``total_memory`` of the
+    visible CUDA devices, None for ``--device cpu`` (the caller then takes
+    the model's synthetic budget, as the reference does on its CPU
+    backends).  The total, not ``mem_get_info``'s free bytes: the ceiling
+    is a property of the deployment and must not move with whatever else
+    happens to be resident at startup (replicas sharing a card pass
+    their share with --hbm-bytes).  Raises RuntimeError when CUDA is
+    asked for and the card cannot be read: a CUDA server never falls
+    back to the synthetic budget."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available in this PyTorch build or machine; pass "
+            "--device cpu to serve on the CPU")
+    return min(torch.cuda.get_device_properties(i).total_memory
+               for i in range(torch.cuda.device_count()))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     # imports deferred so -h never pays the torch/engine import
@@ -203,13 +230,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "nowhere to spill to)", file=sys.stderr)
             return 2
     chip_max_edges = args.chip_max_edges
-    if isinstance(chip_max_edges, str) and chip_max_edges.lower() != "auto":
-        try:
-            chip_max_edges = int(chip_max_edges)
-        except ValueError:
-            print(f"error: --chip-max-edges {chip_max_edges!r}: "
-                  f"expected an integer or 'auto'", file=sys.stderr)
-            return 2
+    if isinstance(chip_max_edges, str):
+        if chip_max_edges.lower() == "auto":
+            chip_max_edges = "auto"
+        else:
+            try:
+                chip_max_edges = int(chip_max_edges)
+            except ValueError:
+                print(f"error: --chip-max-edges {chip_max_edges!r}: "
+                      f"expected an integer or 'auto'", file=sys.stderr)
+                return 2
     if chip_max_edges is not None and args.huge_devices < 1:
         print("error: --chip-max-edges needs --huge-devices >= 1 (the "
               "huge tier is what runs graphs past the ceiling)",
@@ -220,13 +250,57 @@ def main(argv: Optional[List[str]] = None) -> int:
               "a mesh group no bucket can ever route to; set the "
               "single-chip ceiling too", file=sys.stderr)
         return 2
-    for flag, given in (("--chip-max-edges auto",
-                         isinstance(chip_max_edges, str)),
-                        ("--hbm-bytes", args.hbm_bytes is not None)):
-        if given:
-            print(f"error: {flag} needs the footprint memory model, which "
-                  f"the port does not have yet (ROADMAP.md, Queue 1 item "
-                  f"4); set an integer --chip-max-edges", file=sys.stderr)
+    if chip_max_edges == "auto" or (chip_max_edges is not None
+                                    and args.hbm_bytes is not None):
+        # the footprint memory model: derive the largest ladder bucket
+        # whose worst case fits one card, and hold an explicit ceiling to
+        # the same standard (failing at startup beats running out of
+        # memory on first traffic)
+        from fastconsensus_tpu_torch.analysis import footprint
+
+        budget = args.hbm_bytes
+        if budget is None:
+            try:
+                budget = _device_hbm_bytes(args.device) or \
+                    footprint.CHIP_HBM_BYTES_DEFAULT
+            except RuntimeError as e:
+                print(f"error: --chip-max-edges auto needs the card's "
+                      f"memory: {e}", file=sys.stderr)
+                return 2
+        spec = footprint.SurfaceSpec(
+            max_nodes=args.max_nodes, max_edges=args.max_edges,
+            max_batch=args.max_batch,
+            n_p=int((warm_config or {}).get("n_p", 20)),
+            algorithm=str((warm_config or {}).get("algorithm",
+                                                  "louvain")))
+        say(f"deriving the single-chip ceiling from the footprint "
+            f"model (budget {budget / 2**30:.1f} GiB)...")
+        derived = footprint.derive_chip_ceiling(budget, spec)
+        if derived is None:
+            print(f"error: no ladder bucket fits --hbm-bytes {budget} "
+                  f"under this posture; lower --max-nodes/--max-batch "
+                  f"or raise the budget", file=sys.stderr)
+            return 2
+        if chip_max_edges == "auto":
+            if derived >= footprint.grid_up(
+                    args.max_edges, footprint.MIN_EDGE_CLASS):
+                # the whole admissible ladder fits one card, so nothing
+                # would ever route to the mandatory huge tier
+                print(f"error: --chip-max-edges auto derived {derived} "
+                      f"edges, which covers every admissible bucket "
+                      f"(--max-edges {args.max_edges}); the reserved "
+                      f"--huge-devices group would idle forever — drop "
+                      f"the huge tier, raise --max-edges, or set an "
+                      f"explicit lower ceiling", file=sys.stderr)
+                return 2
+            chip_max_edges = derived
+            say(f"--chip-max-edges auto -> {derived} edges")
+        elif chip_max_edges > derived:
+            print(f"error: --chip-max-edges {chip_max_edges} exceeds "
+                  f"the derived single-chip ceiling {derived} for "
+                  f"--hbm-bytes {budget}: buckets between them would "
+                  f"OOM on first traffic (footprint model)",
+                  file=sys.stderr)
             return 2
     from fastconsensus_tpu_torch.serve.shaping import ShapingConfig
 

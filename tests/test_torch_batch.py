@@ -35,6 +35,10 @@ from fastconsensus_tpu_torch.serve import bucketer as tb
 from fastconsensus_tpu_torch.serve.jobs import canonical_edges
 from fastconsensus_tpu_torch.utils import prng
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 FIELDS = ("src", "dst", "weight", "alive")
 STATICS = ("n_nodes", "capacity", "d_cap", "cap_hint", "d_hyb", "hub_cap",
            "agg_cap")

@@ -25,6 +25,10 @@ from fastconsensus_tpu_torch.models.registry import get_detector
 from fastconsensus_tpu_torch.utils import checkpoint as ckpt
 from fastconsensus_tpu_torch.utils import prng
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 INT_KEYS = ("round", "n_alive", "n_unconverged", "n_closure_added",
             "n_repaired", "n_dropped", "n_overflow", "n_hub_overflow",
             "n_agg_overflow", "cold", "capacity", "n_w_zero", "n_w_full",
@@ -34,17 +38,6 @@ INT_KEYS = ("round", "n_alive", "n_unconverged", "n_closure_added",
 @pytest.fixture(autouse=True)
 def _one_round_per_call(monkeypatch):
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """These slabs are small: the port's many small CPU ops run fastest on
-    one thread, and far slower on several when parallel test workers
-    oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def planted():

@@ -596,3 +596,58 @@ def test_two_replica_fleet_on_card_serves_the_bucketed_run(card, tmp_path):
     assert res["rounds"] == lib.rounds
     np.testing.assert_array_equal(np.asarray(res["partitions"]),
                                   np.stack(want))
+
+
+def test_footprint_model_bounds_a_detect_call_on_card(card):
+    """The footprint model (a) of one ``detect`` at a small bucket on
+    hybrid rows is at least the peak the card allocates for it over the
+    baseline taken before its arguments (and at most twice it)."""
+    import dataclasses
+
+    from fastconsensus_tpu_torch.analysis import entrypoints as ep
+    from fastconsensus_tpu_torch.graph import (derive_agg_sizing,
+                                               derive_dense_sizing,
+                                               derive_hybrid_sizing)
+    from fastconsensus_tpu_torch.models.louvain import make_louvain
+    from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.utils import prng
+    from fastconsensus_tpu_torch.utils.synth import planted_partition
+
+    rng = np.random.default_rng(5)
+    edges, _ = planted_partition(3000, 30, 0.03, 0.0005, seed=5)
+    hubs = [(h, v) for h in range(6)
+            for v in rng.choice(np.arange(6, 3000), 700, replace=False)]
+    host, bucket = bucketer.pad_to_bucket(
+        np.concatenate([edges, hubs]), 3000, device="cpu")
+    deg = host.degrees().numpy()
+    alive = int(host.num_alive())
+    d_hyb, hub_cap = derive_hybrid_sizing(deg, host.n_nodes, alive)
+    host = host.with_statics(d_cap=derive_dense_sizing(deg, host.n_nodes),
+                             d_hyb=d_hyb, hub_cap=hub_cap,
+                             agg_cap=derive_agg_sizing(alive))
+    assert ep.path_of(host) == "hybrid"
+    n_p = 8
+    det = make_louvain(max_sweeps=4).warm_variant
+    keys = prng.partition_keys(prng.key(3, card), n_p)
+    sing = torch.arange(host.n_nodes).expand(n_p, host.n_nodes).clone()
+
+    def args():
+        slab = dataclasses.replace(host, **{
+            f: getattr(host, f).to(card)
+            for f in ("src", "dst", "weight", "alive")})
+        return slab, sing.to(card)
+
+    slab, init = args()
+    det(slab, keys, init)             # warm-up: builds, cuBLAS, caches
+    del slab, init
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    slab, init = args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = det(slab, keys, init)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    model = ep.slab_peak_bytes("detect", slab, n_p=n_p)["peak"]
+    assert out.shape == (n_p, host.n_nodes)
+    assert peak <= model <= 2 * peak, (peak, model)

@@ -34,6 +34,10 @@ from fastconsensus_tpu_torch.serve import delta as td
 from fastconsensus_tpu_torch.serve.jobs import canonical_edges
 from fastconsensus_tpu_torch.utils import prng
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 KARATE = Path(__file__).resolve().parent.parent / "examples" / \
     "karate_club.txt"
 

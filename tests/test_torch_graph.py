@@ -9,6 +9,10 @@ from fastconsensus_tpu import graph as jgraph
 from fastconsensus_tpu.utils.synth import planted_partition
 from fastconsensus_tpu_torch import graph as tgraph
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 STATICS = ("n_nodes", "d_cap", "cap_hint", "d_hyb", "hub_cap", "agg_cap",
            "capacity")
 

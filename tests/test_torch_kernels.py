@@ -15,6 +15,10 @@ import torch
 from fastconsensus_tpu.ops import pallas_kernels as pk
 from fastconsensus_tpu_torch.ops import row_kernels as rk
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 SENT = pk.SENTINEL
 
 

@@ -29,6 +29,10 @@ from fastconsensus_tpu_torch.graph import compact_alive
 from fastconsensus_tpu_torch.models import leiden as tld
 from fastconsensus_tpu_torch.models import louvain as tlv
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def port_slab(js):
     return interop.slab_from_arrays(

@@ -25,6 +25,10 @@ from fastconsensus_tpu_torch.models import registry
 from fastconsensus_tpu_torch.models.registry import get_detector
 from fastconsensus_tpu_torch.utils import io
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 KARATE = REPO / "examples" / "karate_club.txt"
 

@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 KARATE = str(REPO / "examples" / "karate_club.txt")
 
@@ -51,14 +55,6 @@ def registry():
     reg.reset()
     yield reg
     reg.reset()
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("rel", COPIED)

@@ -17,6 +17,10 @@ from fastconsensus_tpu_torch.ops import consensus_ops as tcops
 from fastconsensus_tpu_torch.ops import dense_adj as tda
 from fastconsensus_tpu_torch.ops import segment as tseg
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def port_slab(js):
     return interop.slab_from_arrays(

@@ -39,6 +39,10 @@ from fastconsensus_tpu_torch.models.registry import get_detector
 from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.ops.sharded_tail import sharded_consensus_tail
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 CPU8 = [torch.device("cpu")] * 8
 INT_FIELDS = ("converged", "n_alive", "n_unconverged", "n_closure_added",

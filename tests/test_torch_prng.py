@@ -4,9 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fastconsensus_tpu.utils import prng as jprng
 from fastconsensus_tpu_torch.utils import prng
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 SEEDS = [0, 1, 7, 12345, 2 ** 31 - 1, -3]
 

@@ -27,6 +27,10 @@ from fastconsensus_tpu_torch.models.registry import get_detector
 from fastconsensus_tpu_torch.obs import get_registry
 from fastconsensus_tpu_torch.utils import prng
 
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 KARATE = os.path.join(os.path.dirname(__file__), "..", "examples",
                       "karate_club.txt")
 INT_KEYS = ("round", "n_alive", "n_unconverged", "n_closure_added",
@@ -36,15 +40,9 @@ INT_KEYS = ("round", "n_alive", "n_unconverged", "n_closure_added",
 
 @pytest.fixture(autouse=True)
 def _small_cpu_runs(monkeypatch):
-    """One round per host step in the reference, and one torch thread:
-    these graphs are small, and parallel test workers oversubscribe the
-    cores."""
+    """One round per host step in the reference."""
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
     monkeypatch.delenv("FCTPU_DETECT_CALL_MEMBERS", raising=False)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def planted80():

@@ -14,6 +14,11 @@ import threading
 
 import numpy as np
 import pytest
+import torch
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 PKGS = ("fastconsensus_tpu", "fastconsensus_tpu_torch")
 

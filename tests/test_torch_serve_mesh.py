@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fastconsensus_tpu.consensus import ConsensusConfig as JConfig
 from fastconsensus_tpu.serve.jobs import JobSpec as JSpec
@@ -34,6 +35,10 @@ from fastconsensus_tpu_torch.serve.server import (ConsensusService,
                                                   validate_warm_specs)
 from fastconsensus_tpu_torch.serve.shaping import ShapingConfig, \
     TrafficShaper
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 NO_SHED = ShapingConfig(shed=False)
@@ -229,10 +234,13 @@ def test_huge_delta_falls_back_to_a_full_run():
     (["--huge-devices", "1"], "--huge-devices without --chip-max-edges"),
     (["--huge-devices", "1", "--chip-max-edges", "lots"],
      "--chip-max-edges 'lots': expected an integer or 'auto'"),
+    # on CUDA (the default device) without a card: the budget is the
+    # card's memory, never the synthetic fallback
     (["--huge-devices", "1", "--chip-max-edges", "auto"],
-     "--chip-max-edges auto needs the footprint memory model"),
+     "--chip-max-edges auto needs the card's memory: CUDA is not "
+     "available"),
     (["--huge-devices", "1", "--chip-max-edges", "96", "--hbm-bytes",
-      "1000000"], "--hbm-bytes needs the footprint memory model"),
+      "1000000"], "no ladder bucket fits --hbm-bytes 1000000"),
     (["--device", "cpu", "--devices", "1", "--huge-devices", "1",
       "--chip-max-edges", "96"], "must leave at least one serving chip"),
 ])

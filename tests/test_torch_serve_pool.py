@@ -11,6 +11,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from fastconsensus_tpu_torch.consensus import ConsensusConfig
 from fastconsensus_tpu_torch.obs import counters as obs_counters
@@ -20,6 +21,10 @@ from fastconsensus_tpu_torch.serve.queue import QueueFull
 from fastconsensus_tpu_torch.serve.server import (ConsensusService,
                                                   ServeConfig)
 from fastconsensus_tpu_torch.serve.shaping import ShapingConfig
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 
 def ring_graph(n, chords=0, shift=7):

@@ -18,6 +18,7 @@ from collections import deque
 
 import numpy as np
 import pytest
+import torch
 
 from fastconsensus_tpu.consensus import ConsensusConfig as JConfig
 from fastconsensus_tpu.consensus import run_consensus as jrun
@@ -33,6 +34,10 @@ from fastconsensus_tpu_torch.serve.jobs import Job, JobSpec
 from fastconsensus_tpu_torch.serve.server import (ConsensusService,
                                                   ServeConfig)
 from fastconsensus_tpu_torch.serve.shaping import ShapingConfig
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NO_SHED = ShapingConfig(shed=False)
@@ -223,16 +228,17 @@ def test_server_without_cuda_exits_2_with_the_reason(tmp_path):
     assert "--device cpu" in proc.stderr
 
 
-def test_unported_mesh_tier_knobs_raise():
+def test_unported_mesh_tier_knobs_raise(capsys):
     """The footprint-derived ceiling (``--chip-max-edges auto``) and its
-    budget (``--hbm-bytes``) need the memory model that is not ported
-    yet: each exits 2 naming where it is scheduled, never ignored."""
-    for flags in (["--chip-max-edges", "auto"],
+    budget (``--hbm-bytes``) are acted on, never ignored: under a budget
+    no bucket fits, each exits 2 naming the budget, before any worker
+    starts."""
+    from fastconsensus_tpu_torch.serve.__main__ import main as serve_main
+
+    for flags in (["--chip-max-edges", "auto", "--hbm-bytes", "1000"],
                   ["--chip-max-edges", "4096", "--hbm-bytes", "1000000"]):
-        proc = subprocess.run(
-            [sys.executable, "-m", "fastconsensus_tpu_torch.serve",
-             "--device", "cpu", "--huge-devices", "1"] + flags, cwd=REPO,
-            capture_output=True, text=True, timeout=60)
-        assert proc.returncode == 2
-        assert "needs the footprint memory model" in proc.stderr
-        assert "Queue 1 item 4" in proc.stderr
+        assert serve_main(["--device", "cpu", "--huge-devices", "1",
+                           "--port", "0", "--quiet"] + flags) == 2
+        err = capsys.readouterr().err
+        assert "no ladder bucket fits --hbm-bytes" in err
+        assert flags[-1] in err

@@ -31,6 +31,11 @@ import time
 import urllib.request
 
 import pytest
+import torch
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KARATE = os.path.join(REPO, "examples", "karate_club.txt")
@@ -50,7 +55,10 @@ BUILD_COUNTERS = ("serve.xla_compiles", "serve.device.0.xla_compiles")
 # One live server after one real job, in a fresh process so that its
 # process-wide registries (counters, latency histograms) hold this
 # traffic alone: argv is the package, the output path and the JSON of
-# the ServeConfig fields.
+# the ServeConfig fields.  The job's SLO target is an hour, which it
+# cannot miss within the script's time limit: which ``serve.slo.*``
+# counters exist (met or missed) then does not depend on how loaded the
+# host is.
 _SNAPSHOT = textwrap.dedent("""\
     import importlib
     import json
@@ -71,7 +79,7 @@ _SNAPSHOT = textwrap.dedent("""\
         "http://127.0.0.1:%d" % httpd.server_address[1], timeout=30.0)
     sub = client.submit(edges=edges.tolist(), n_nodes=len(ids),
                         algorithm="lpm", n_p=4, delta=0.1, max_rounds=2,
-                        seed=1)
+                        seed=1, slo_target_ms=3_600_000.0)
     client.wait(sub["job_id"], timeout=300)
     snaps = {"healthz": client.healthz(), "metricsz": client.metricsz(),
              "status": client.status(sub["job_id"]),

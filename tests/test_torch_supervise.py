@@ -6,6 +6,11 @@ import types
 from pathlib import Path
 
 import pytest
+import torch
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REFERENCE = Path(__file__).resolve().parent / "test_supervise.py"
 
