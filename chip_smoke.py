@@ -119,7 +119,11 @@ Phases (any failure exits non-zero without the final line):
              milliseconds, rung and compiles, each bucket's cost prior
              beside its device time, the delta's wall beside the lfr10k
              job's, the cache hit's latency, the peak device memory;
-             row_totals per shape as in 7.  B, the entry points in
+             row_totals per shape as in 7; all of A under the lock-order
+             recorder (analysis/lockorder.py, installed before the
+             service is built), the observed edges counted and those the
+             static graph (analysis/concurrency.py) lacks printed, their
+             union with the static graph acyclic.  B, the entry points in
              subprocesses: python -m fastconsensus_tpu_torch.serve
              --max-batch 4 --cache-file, cli.py --server on karate for
              louvain and lpm (each tree byte-identical to the tree of
@@ -147,7 +151,9 @@ Phases (any failure exits non-zero without the final line):
              on_death, and the resubmit answered from the successor's
              inherited cache (kill-to-answer seconds); add_replica("r2")
              with prewarm shipping, armed with the drain-time spill fault
-             (FCTPU_FAULT_INJECT ...ResultCache.spill:OSError, count 1);
+             (FCTPU_FAULT_INJECT ...ResultCache.spill:OSError, count 1;
+             a site analysis/fault_inventory.json lists, absorbed by
+             ConsensusService.drain);
              every job resubmitted, each a cache hit with the same bytes;
              collect_bundles (the killed replica's included) plus the
              router's own bundle, and fleettrace render holding the
@@ -2052,15 +2058,20 @@ def phase_serve(state):
     process (HTTP front end on a thread): lfr10k as a solo job, batch A's
     four emailEu stand-ins coalesced into one rung-4 batch while it runs,
     a 1% delta against it, and its repeat from the cache; row_totals per
-    shape.  B: the entry points in subprocesses (see _serve_part_b)."""
+    shape.  A runs under the lock-order recorder (analysis/lockorder.py):
+    the acquisition order observed on the card's dispatch threads must
+    be acyclic in union with the static lock graph.  B: the entry points
+    in subprocesses (see _serve_part_b)."""
     import threading
 
     import numpy as np
 
-    from fastconsensus_tpu_torch.analysis import cost
+    from fastconsensus_tpu_torch.analysis import (concurrency, cost,
+                                                  lockorder, read_sources)
     from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
                                                    run_consensus)
     from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import counters as obs_counters
     from fastconsensus_tpu_torch.ops import row_kernels as rk
     from fastconsensus_tpu_torch.serve import bucketer, delta
     from fastconsensus_tpu_torch.serve.client import ServeClient
@@ -2085,86 +2096,115 @@ def phase_serve(state):
     batch_specs = [JobSpec(edges=e, n_nodes=n, config=ConsensusConfig(
         seed=s, **batch_cfg)) for (e, n), s in zip(graphs, seeds)]
     saved_env = os.environ.get("FCTPU_DETECT_CALL_MEMBERS")
-    # Two operator knobs differ from the defaults.  The cost prior is the
-    # reference's CPU envelope (analysis/cost.py): it puts batch A's
-    # bucket at ~100 s a job and would shed the batch at submit, so this
-    # part admits without shedding (a card-calibrated prior is future
-    # work).  The lfr10k parent converges on a cold stagnation refresh,
-    # whose relabelling reads as a final churn of ~1.0 against the
-    # default 0.75 ceiling (DeltaPolicy.max_parent_churn), though its
-    # members agree at 0.98; the ceiling is lifted so the delta runs
-    # incremental, the path this phase drives.
-    svc = ConsensusService(ServeConfig(
-        device=DEVICE, max_batch=4, shaping=ShapingConfig(shed=False),
-        delta_policy=delta.DeltaPolicy(max_parent_churn=1.0)))
-    httpd = make_http_server(svc, "127.0.0.1", 0)
-    http = threading.Thread(target=httpd.serve_forever, daemon=True)
-    http.start()
-    client = ServeClient(f"http://127.0.0.1:{httpd.server_address[1]}")
-    svc.start()
-    try:
-        rk.reset_launches()
-        reset_peak()
-        t0 = time.perf_counter()
-        solo = svc.submit(solo_spec)
-        _wait_for("serve: the solo job starts",
-                  lambda: solo.state != "queued", timeout=60)
-        batch = [None] * 4
+    # The service runs under the port's lock-order recorder, installed
+    # before it is built so that its locks are wrapped at creation; a
+    # registry made here records the edges into it too (the process's
+    # own predates the recording, so its lock is unwrapped).
+    with lockorder.recording() as rec:
+        saved_reg = obs_counters._REGISTRY
+        obs_counters._REGISTRY = obs_counters.ObsRegistry()
+        # Two operator knobs differ from the defaults.  The cost prior is
+        # the reference's CPU envelope (analysis/cost.py): it puts batch
+        # A's bucket at ~100 s a job and would shed the batch at submit,
+        # so this part admits without shedding (a card-calibrated prior
+        # is future work).  The lfr10k parent converges on a cold
+        # stagnation refresh, whose relabelling reads as a final churn of
+        # ~1.0 against the default 0.75 ceiling (DeltaPolicy.
+        # max_parent_churn), though its members agree at 0.98; the
+        # ceiling is lifted so the delta runs incremental, the path this
+        # phase drives.
+        svc = ConsensusService(ServeConfig(
+            device=DEVICE, max_batch=4, shaping=ShapingConfig(shed=False),
+            delta_policy=delta.DeltaPolicy(max_parent_churn=1.0)))
+        httpd = make_http_server(svc, "127.0.0.1", 0)
+        http = threading.Thread(target=httpd.serve_forever, daemon=True)
+        http.start()
+        client = ServeClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        svc.start()
+        try:
+            rk.reset_launches()
+            reset_peak()
+            t0 = time.perf_counter()
+            solo = svc.submit(solo_spec)
+            _wait_for("serve: the solo job starts",
+                      lambda: solo.state != "queued", timeout=60)
+            batch = [None] * 4
 
-        def submit(i):
-            batch[i] = svc.submit(batch_specs[i])
+            def submit(i):
+                batch[i] = svc.submit(batch_specs[i])
 
-        threads = [threading.Thread(target=submit, args=(i,))
-                   for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        check(solo.state == "running",
-              "serve: the solo job finished before the batch was queued")
-        _wait_for("serve: solo and batch jobs",
-                  lambda: all(j.state in ("done", "failed")
-                              for j in [solo] + batch), timeout=600)
-        check(all(j.state == "done" for j in [solo] + batch),
-              f"serve: failed jobs {[j.error for j in [solo] + batch]}")
-        q = solo.result["quality"]
-        log(f"serve A: the lfr10k job converged {solo.result['converged']} "
-            f"in {solo.result['rounds']} rounds; final agreement "
-            f"{q['final_agreement']}, churn {q['final_churn_frac']}")
-        child_u, child_v, adds, removes = _delta_child(u, v, n10k, 0.01,
-                                                       seed=1)
-        td = time.perf_counter()
-        dj = svc.submit_delta({"parent": solo.key, "adds": adds.tolist(),
-                               "removes": removes.tolist()})
-        check(dj.spec.delta["mode"] == "incremental",
-              f"serve: the delta was not served incremental: "
-              f"{dj.spec.delta}")
-        _wait_for("serve: the delta job",
-                  lambda: dj.state in ("done", "failed"), timeout=300)
-        delta_wall = time.perf_counter() - td
-        check(dj.state == "done", f"serve: delta job failed: {dj.error}")
-        part_a_s = time.perf_counter() - t0
-        peak = read_peak()
-        launches = dict(rk.LAUNCHES)
-        shapes = dict(rk.ROW_TOTALS_SHAPES)
-        before = dict(rk.LAUNCHES)
-        th = time.perf_counter()
-        again = svc.submit(solo_spec)
-        hit_ms = (time.perf_counter() - th) * 1e3
-        check(again.state == "done" and again.result["cached"] and
-              again.result["compiles"] == 0 and dict(rk.LAUNCHES) == before,
-              "serve: the repeat was not a submit-time cache hit")
-        metrics = client.metricsz()
-        counters = metrics["fcobs"]["counters"]
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        drained = svc.drain(120)
-        if saved_env is None:
-            os.environ.pop("FCTPU_DETECT_CALL_MEMBERS", None)
-        else:
-            os.environ["FCTPU_DETECT_CALL_MEMBERS"] = saved_env
+            threads = [threading.Thread(target=submit, args=(i,))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            check(solo.state == "running",
+                  "serve: the solo job finished before the batch was queued")
+            _wait_for("serve: solo and batch jobs",
+                      lambda: all(j.state in ("done", "failed")
+                                  for j in [solo] + batch), timeout=600)
+            check(all(j.state == "done" for j in [solo] + batch),
+                  f"serve: failed jobs {[j.error for j in [solo] + batch]}")
+            q = solo.result["quality"]
+            log(f"serve A: the lfr10k job converged "
+                f"{solo.result['converged']} "
+                f"in {solo.result['rounds']} rounds; final agreement "
+                f"{q['final_agreement']}, churn {q['final_churn_frac']}")
+            child_u, child_v, adds, removes = _delta_child(u, v, n10k, 0.01,
+                                                           seed=1)
+            td = time.perf_counter()
+            dj = svc.submit_delta({"parent": solo.key, "adds": adds.tolist(),
+                                   "removes": removes.tolist()})
+            check(dj.spec.delta["mode"] == "incremental",
+                  f"serve: the delta was not served incremental: "
+                  f"{dj.spec.delta}")
+            _wait_for("serve: the delta job",
+                      lambda: dj.state in ("done", "failed"), timeout=300)
+            delta_wall = time.perf_counter() - td
+            check(dj.state == "done", f"serve: delta job failed: {dj.error}")
+            part_a_s = time.perf_counter() - t0
+            peak = read_peak()
+            launches = dict(rk.LAUNCHES)
+            shapes = dict(rk.ROW_TOTALS_SHAPES)
+            before = dict(rk.LAUNCHES)
+            th = time.perf_counter()
+            again = svc.submit(solo_spec)
+            hit_ms = (time.perf_counter() - th) * 1e3
+            check(again.state == "done" and again.result["cached"] and
+                  again.result["compiles"] == 0 and
+                  dict(rk.LAUNCHES) == before,
+                  "serve: the repeat was not a submit-time cache hit")
+            metrics = client.metricsz()
+            counters = metrics["fcobs"]["counters"]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            drained = svc.drain(120)
+            if saved_env is None:
+                os.environ.pop("FCTPU_DETECT_CALL_MEMBERS", None)
+            else:
+                os.environ["FCTPU_DETECT_CALL_MEMBERS"] = saved_env
+            obs_counters._REGISTRY = saved_reg
     check(drained, "serve: part A did not drain")
+    # the observed lock order, in union with the static graph, is acyclic
+    pkg = ROOT / "fastconsensus_tpu_torch"
+    t_static = time.perf_counter()
+    static_pass = concurrency.ConcurrencyAnalyzer(read_sources([str(pkg)]))
+    static_pass.run()
+    sites, static = static_pass.lock_sites, set(static_pass.edges)
+    t_static = time.perf_counter() - t_static
+    observed = rec.named_edges(sites)
+    unseen = sorted(observed - static)
+    log(f"serve A: lock order recorded on the {DEVICE} service's threads: "
+        f"{len(observed)} observed edge(s), {len(unseen)} not in the "
+        f"static graph's {len(static)} (its pass {t_static:.2f}s): "
+        f"{unseen}")
+    check(observed, "serve: the recorder saw no nested acquisition")
+    try:
+        rec.assert_acyclic(extra_edges=static, sites=sites)
+    except AssertionError as e:
+        check(False, f"serve: {e}")
     # coalescing: one rung-4 batch, and no failed batch hidden behind the
     # whole-batch solo fallback
     ids = {j.batch_id for j in batch}
@@ -2306,6 +2346,19 @@ def phase_fleet(state):
         "--warm-config", json.dumps({"n_p": 4, "max_rounds": 2})))
     env = {"PYTHONPATH": str(ROOT)}
     drain = "fastconsensus_tpu_torch.serve.cache:ResultCache.spill:OSError"
+    # the armed site is one the fault pass inventories, with the drain as
+    # the boundary it claims absorbs the fault
+    inventory = json.loads((ROOT / "fastconsensus_tpu_torch" / "analysis" /
+                            "fault_inventory.json").read_text())
+    site = {s["site_id"]: s for s in inventory["sites"]}.get(drain)
+    absorber = "fastconsensus_tpu_torch.serve.server.ConsensusService.drain"
+    check(site is not None and site["injectable"] and
+          absorber in site["boundary"],
+          f"fleet: {drain} is not inventoried as absorbed by {absorber}: "
+          f"{site}")
+    log(f"fleet: {drain} is in analysis/fault_inventory.json ({site['kind']}"
+        f" at cache.py lines {site['lines']}), claimed absorbed by "
+        f"{site['boundary']}")
     try:
         spawn_s = {}
 

@@ -12,15 +12,17 @@ ported: Louvain, Leiden and LPM on the device, CNM and Infomap as host
 C++.
 """
 
-__all__ = ["GraphSlab", "pack_edges", "fast_consensus",
+from fastconsensus_tpu_torch.version import __version__
+
+__all__ = ["GraphSlab", "pack_edges", "host_edges", "fast_consensus",
            "run_consensus", "run_consensus_batch", "ConsensusConfig",
-           "get_detector"]
+           "get_detector", "__version__"]
 
 
 def __getattr__(name):
     # lazy, as the reference's top level: importing the package loads no
     # module until a name is used
-    if name in ("GraphSlab", "pack_edges"):
+    if name in ("GraphSlab", "pack_edges", "host_edges"):
         from fastconsensus_tpu_torch import graph
 
         return getattr(graph, name)

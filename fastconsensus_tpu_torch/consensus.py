@@ -796,6 +796,8 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
         # absolute round 0: uniformly cold (singleton-init full sweeps)
         run_round("cold", detect)
         while active().any():
+            # fcheck: ok=sync-in-loop (host bookkeeping: active() is a
+            # numpy mask and mode() reads host state; no tensor here)
             refresh = np.array([bool(a) and
                                 jobs[i].mode(int(rounds[i])) == "refresh"
                                 for i, a in enumerate(active())])

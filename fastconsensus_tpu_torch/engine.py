@@ -336,6 +336,8 @@ def consensus_batch_round(slabs: List[GraphSlab], keys: List[torch.Tensor],
 def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
     """Every field of every round's stats in one device-to-host copy, as
     numpy (float64 holds each int and float32 field exactly)."""
+    # fcheck: ok=f64-dtype (one host copy of every stats field: float64
+    # holds each int32 count and float32 value exactly)
     flat = torch.cat([t.reshape(-1).to(torch.float64)
                       for st in stats for t in st]).cpu().numpy()
     out, at = [], 0
@@ -433,6 +435,8 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
             # chunk is durable only once it is done
             for block in ([out] if mesh is None else out):
                 if block.is_cuda:
+                    # fcheck: ok=sync-in-loop (the deliberate per-chunk
+                    # barrier above; one sync per chunk of members)
                     torch.cuda.synchronize(block.device)
             out = gather_labels(out).to(dev)
         obs_counters.host_sync("detect_chunk")
@@ -444,6 +448,8 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
         if path is not None:
             tmp = path + ".tmp"
             with open(tmp, "wb") as fh:  # np.save would append .npy to tmp
+                # fcheck: ok=sync-in-loop (the cache stores each finished
+                # chunk on disk; it is already synced above)
                 np.save(fh, out.cpu().numpy().astype(np.int32))
             os.replace(tmp, path)
         parts.append(out)

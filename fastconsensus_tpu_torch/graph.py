@@ -106,13 +106,15 @@ class GraphSlab:
     def strengths(self) -> torch.Tensor:
         """Weighted degree per node, float32[*batch, n_nodes]."""
         srcd, _, wd, ad = self.directed()
-        return _node_sum(self.n_nodes, srcd, ad,
-                         torch.where(ad, wd, 0.0).double()
-                         ).to(torch.float32)
+        # fcheck: ok=f64-dtype (exact integer-weight node sums, the same
+        # in any scatter order: see _node_sum)
+        w64 = torch.where(ad, wd, 0.0).double()
+        return _node_sum(self.n_nodes, srcd, ad, w64).to(torch.float32)
 
     def total_weight(self) -> torch.Tensor:
         """Sum of the alive directed weights (2m), float32[*batch]."""
         _, _, wd, ad = self.directed()
+        # fcheck: ok=f64-dtype (2m of integer weights, exact in any order)
         return torch.where(ad, wd, 0.0).double().sum(dim=-1).to(
             torch.float32)
 
@@ -322,3 +324,39 @@ def grow_slab(slab: GraphSlab, new_capacity: int) -> GraphSlab:
     return dataclasses.replace(
         slab, src=ext(slab.src), dst=ext(slab.dst), weight=ext(slab.weight),
         alive=ext(slab.alive), cap_hint=slab.cap_hint or slab.capacity)
+
+
+def host_edges(slab: GraphSlab) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Readback: alive (u, v, w) triples as numpy arrays (endpoints int64,
+    the slab's index type; the reference's values, in its int32)."""
+    alive = slab.alive.cpu().numpy()
+    return (slab.src.cpu().numpy()[alive], slab.dst.cpu().numpy()[alive],
+            slab.weight.cpu().numpy()[alive])
+
+
+def to_networkx(slab: GraphSlab):
+    """Debug/interop boundary: materialize a networkx.Graph on the host."""
+    from fastconsensus_tpu_torch.utils.synth import import_networkx
+
+    g = import_networkx().Graph()
+    g.add_nodes_from(range(slab.n_nodes))
+    u, v, w = host_edges(slab)
+    g.add_weighted_edges_from(zip(u.tolist(), v.tolist(), w.tolist()))
+    return g
+
+
+def from_networkx(g, capacity: Optional[int] = None,
+                  device=None) -> GraphSlab:
+    """Interop: pack a networkx graph whose nodes are hashable ids.
+
+    Node ids are compacted to 0..N-1 by sorted order, as in the
+    reference; the caller keeps the mapping if it needs original ids.
+    ``device`` as in :func:`pack_edges`."""
+    nodes = sorted(g.nodes())
+    index = {n: i for i, n in enumerate(nodes)}
+    edges = np.array([[index[a], index[b]] for a, b in g.edges()],
+                     dtype=np.int64).reshape(-1, 2)
+    wts = np.array([d.get("weight", 1.0) for _, _, d in g.edges(data=True)],
+                   dtype=np.float32)
+    return pack_edges(edges, len(nodes), weights=wts, capacity=capacity,
+                      device=device)

@@ -77,9 +77,12 @@ def _sigma_tot(strength: torch.Tensor, labels: torch.Tensor, n: int
     ``[M, n]``, accumulated in float64 so large integer sums stay exact
     and run-independent (see graph._node_sum)."""
     m = labels.shape[0]
+    # fcheck: ok=f64-dtype (community totals of integer-weight strengths,
+    # exact in any scatter order; float32 atomics would vary by run)
     out = torch.zeros((m, n), dtype=torch.float64, device=labels.device)
-    return out.scatter_add_(1, labels.clamp(0, n - 1),
-                            strength.double().expand(m, n)).to(torch.float32)
+    # fcheck: ok=f64-dtype (the same sums' addends)
+    s64 = strength.double().expand(m, n)
+    return out.scatter_add_(1, labels.clamp(0, n - 1), s64).to(torch.float32)
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -684,6 +687,8 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
     endgame_at = max(1, int(0.05 * n))
     n_want = torch.full((m,), n, dtype=torch.int64, device=dev)
     for it in range(max_sweeps):
+        # fcheck: ok=sync-in-loop (the sweep loop's exit test: one
+        # deliberate sync a sweep, which also sizes the next sweep's rows)
         act = torch.nonzero(n_want >= stop_at).flatten()
         if act.numel() == 0:
             break

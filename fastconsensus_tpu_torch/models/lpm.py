@@ -114,6 +114,8 @@ def lpm_members(prep: Prepared, keys: torch.Tensor,
         labels = init_labels.to(device=dev, dtype=torch.int64).clone()
     n_want = torch.ones(m, dtype=torch.int64, device=dev)
     for it in range(max_iters):
+        # fcheck: ok=sync-in-loop (the iteration loop's exit test: one
+        # deliberate sync an iteration, which also sizes the next one)
         act = torch.nonzero(n_want > 0).flatten()
         if act.numel() == 0:
             break

@@ -118,6 +118,10 @@ def load() -> ctypes.CDLL:
             so_path = lib_path()
             try:
                 if not so_path.exists():
+                    # fcheck: ok=blocking-under-lock (the lock exists to
+                    # serialize the one compiler run: concurrent first
+                    # callers wait for the single build; after it the
+                    # bound library returns without blocking)
                     _compile(so_path)
                 try:
                     lib = ctypes.CDLL(str(so_path))
@@ -125,6 +129,7 @@ def load() -> ctypes.CDLL:
                     # built on another host (a newer C++ runtime, say):
                     # build it here once more
                     so_path.unlink(missing_ok=True)
+                    # fcheck: ok=blocking-under-lock (the same one build)
                     _compile(so_path)
                     lib = ctypes.CDLL(str(so_path))
                 _lib = _bind(lib)

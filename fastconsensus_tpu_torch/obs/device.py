@@ -123,6 +123,11 @@ class ProfilerSession:
                 self._prof.export_chrome_trace(path)
                 self.trace_path = path
             except Exception as e:  # noqa: BLE001
+                # a log line is not an outlet: the counter carries the
+                # failure into /metricsz and the trace's counters line
+                from fastconsensus_tpu_torch.obs import counters
+
+                counters.get_registry().inc("obs.profiler.export_failed")
                 _logger.warning("torch.profiler trace export failed: %s", e)
             self._prof = None
         return False

@@ -77,14 +77,18 @@ def member_modularity(slab: GraphSlab, labels: torch.Tensor) -> torch.Tensor:
     n = slab.n_nodes
     m = labels.shape[0]
     w = torch.where(slab.alive, slab.weight, 0.0)
+    # fcheck: ok=f64-dtype (m of integer weights, exact in any order)
     total_w = w.double().sum().to(torch.float32)
     w_safe = total_w.clamp(min=1e-30)
     deg = slab.strengths()
     intra = torch.where(labels[:, slab.src] == labels[:, slab.dst], w,
                         0.0).sum(dim=1)
-    d_c = torch.zeros((m, n), dtype=torch.float64,
-                      device=labels.device).scatter_add_(
-        1, labels, deg.double().expand(m, n)).to(torch.float32)
+    # fcheck: ok=f64-dtype (community degree totals, exact in any
+    # scatter order, so each member's modularity is run-independent)
+    d64 = deg.double().expand(m, n)
+    # fcheck: ok=f64-dtype (the same sums)
+    d_c = torch.zeros((m, n), dtype=torch.float64, device=labels.device
+                      ).scatter_add_(1, labels, d64).to(torch.float32)
     q = intra / w_safe - ((d_c / (2.0 * w_safe)) ** 2).sum(dim=1)
     return torch.where(total_w > 0.0, q, torch.zeros_like(q))
 

@@ -83,6 +83,8 @@ def node_label_runs(node, label, value, valid, n_nodes: int) -> Runs:
     new_run[..., 1:] = (ns[..., 1:] != ns[..., :-1]) | \
         (ls[..., 1:] != ls[..., :-1])
     run_id = torch.cumsum(new_run.to(torch.int64), dim=-1) - 1
+    # fcheck: ok=f64-dtype (run totals of integer weights, exact in any
+    # scatter order: the same bits on every run and device)
     total = _flat_scatter(node.shape, run_id, vs.double()).to(torch.float32)
     count = _flat_scatter(node.shape, run_id, torch.ones_like(run_id))
     head_at = torch.where(new_run, run_id, e)
@@ -213,7 +215,10 @@ def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     1e-6 of the reference's float32 logs (whose own rounding varies by
     backend)."""
     u = u.clamp(1e-7, 1.0 - 1e-7)
+    # fcheck: ok=f64-dtype (a log rounded once to float32: the same bits
+    # on every device, where float32 logs differ by backend)
     inner = torch.log(u.double()).to(torch.float32)
+    # fcheck: ok=f64-dtype (the second log, likewise)
     return -torch.log((-inner).double()).to(torch.float32)
 
 

@@ -152,6 +152,8 @@ def _insert_edges(chunks: Chunks, cand_u, cand_v, cand_w, cand_valid,
     for s, c, d in zip(coll.axis_index(chunks), chunks, dead):
         mine = ok & (rank >= offsets[s]) & (rank < offsets[s] + counts[s])
         dev = c.device
+        # fcheck: ok=sync-in-loop (one sync a shard: each shard's free
+        # slots are a data-dependent count, as in the unsharded tail)
         local_free = torch.nonzero(d).flatten()
         slot = local_free[(rank[mine] - offsets[s]).to(dev)]
         out.append(cops.write_slots(c, slot, cu[mine].to(dev),
@@ -222,9 +224,12 @@ def _quality(chunks: Chunks, prev: Chunks, counts: List[torch.Tensor],
         n_start = _num_alive(prev).to(torch.float32)
         out["agreement"] = tot / (n_start.clamp(min=1.0) * f * (f - 1.0))
     w = [torch.where(c.alive, c.weight, 0.0) for c in chunks]
+    # fcheck: ok=f64-dtype (shard sums of integer weights: exact, so the
+    # psum's order does not matter)
     total_w = coll.psum([x.double().sum() for x in w])[0].to(torch.float32)
     w_safe = total_w.clamp(min=1e-30)
-    # float64 node sums, as graph.strengths: exact, so in any order
+    # fcheck: ok=f64-dtype (float64 node sums, as graph.strengths: exact,
+    # so in any order)
     w64 = [x.double() for x in w]
     alive = [c.alive for c in chunks]
     strength = (_node_psum(w64, [c.src for c in chunks], alive, n)[0] +
@@ -238,9 +243,12 @@ def _quality(chunks: Chunks, prev: Chunks, counts: List[torch.Tensor],
             0.0).sum(dim=1) for c, x in zip(chunks, w)])[0].to(dev)
         m = b.shape[0]
         ws = w_safe.to(dev)
+        # fcheck: ok=f64-dtype (community degree totals, exact in any
+        # scatter order, as obs.quality.member_modularity)
+        s64 = strength.to(dev).double().expand(m, n)
+        # fcheck: ok=f64-dtype (the same sums)
         d_c = torch.zeros((m, n), dtype=torch.float64, device=dev
-                          ).scatter_add_(1, b, strength.to(dev).double()
-                                         .expand(m, n)).to(torch.float32)
+                          ).scatter_add_(1, b, s64).to(torch.float32)
         qb = intra / ws - ((d_c / (2.0 * ws)) ** 2).sum(dim=1)
         q.append(torch.where(total_w.to(dev) > 0.0, qb, torch.zeros_like(qb)))
     out["member_modularity"] = coll.all_gather(q, tiled=True)[0]

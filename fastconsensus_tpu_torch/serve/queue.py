@@ -271,7 +271,10 @@ class AdmissionQueue:
                                     blocks_solo = shaper.runs_solo(
                                         j.spec.bucket().key())
                                 except Exception:  # noqa: BLE001 — a
-                                    pass   # probe: stays False
+                                    # probe: blocks_solo stays False,
+                                    # and the failure is counted
+                                    self._reg.inc(
+                                        "serve.queue.solo_probe_errors")
                         if held_group is not None and held_group != g:
                             # a tighter-deadline job of another group
                             # took the head mid-hold: the old episode

@@ -3,7 +3,8 @@
 The port's own copy of the reference's ``utils/synth.planted_partition``
 (same draws from the same seed, so both packages build the same graph),
 plus the heterogeneous block sizes of ``bench.py``'s email-Eu-core
-stand-in.
+stand-in, and its copy of ``lfr_graph``, the networkx LFR wrapper
+(imported at use, with the reference's retry on successive seeds).
 """
 
 from __future__ import annotations
@@ -92,4 +93,58 @@ def planted_partition(n: int,
     if not chunks:
         raise ValueError("generated an empty graph; raise p_in/p_out")
     edges = np.unique(np.concatenate(chunks, axis=0), axis=0)
+    return edges, labels
+
+
+def import_networkx():
+    """networkx, imported at use: the package does not depend on it."""
+    try:
+        import networkx
+    except ImportError as e:
+        raise ImportError(
+            "networkx is not installed: the networkx interop functions "
+            "(graph.to_networkx, graph.from_networkx, "
+            "utils.synth.lfr_graph) need it") from e
+    return networkx
+
+
+def lfr_graph(n: int,
+              mu: float,
+              average_degree: float = 10.0,
+              min_community: int = 20,
+              tau1: float = 3.0,
+              tau2: float = 1.5,
+              seed: int = 0,
+              max_tries: int = 5
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """LFR benchmark graph with planted community labels.
+
+    Wraps ``networkx.LFR_benchmark_graph`` (the generator from the LFR paper
+    the reference's README cites).  The generator occasionally fails to
+    converge for a given seed; we retry with successive seeds.
+
+    Returns ``(edges int64[E, 2], labels int64[n])``.
+    """
+    nx = import_networkx()
+    last_err: Optional[Exception] = None
+    for t in range(max_tries):
+        try:
+            g = nx.LFR_benchmark_graph(
+                n, tau1, tau2, mu, average_degree=average_degree,
+                min_community=min_community, seed=seed + t)
+            break
+        except Exception as e:  # nx raises ExceededMaxIterations and others
+            last_err = e
+    else:
+        raise RuntimeError(
+            f"LFR generation failed after {max_tries} seeds: {last_err}")
+
+    labels = np.zeros(n, dtype=np.int64)
+    seen = {}
+    for node in g.nodes():
+        comm = frozenset(g.nodes[node]["community"])
+        labels[node] = seen.setdefault(comm, len(seen))
+    edges = np.array([(min(u, v), max(u, v)) for u, v in g.edges()
+                      if u != v], dtype=np.int64)
+    edges = np.unique(edges, axis=0)
     return edges, labels

@@ -25,6 +25,22 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "analysis_fixtures"
+TORCH_FIXTURES = REPO / "tests" / "torch_analysis_fixtures"
+
+
+# the source rules that fire on the reference's fixture directory: its
+# concurrency and fault fixtures are plain Python, and its key-reuse and
+# sync-in-loop fixtures use the same idioms (its float64 fixture is jnp's)
+REF_SOURCE_RULES = {
+    "key-reuse", "sync-in-loop", "guarded-field", "lock-order",
+    "blocking-under-lock", "notify-outside-lock", "unguarded-root-write",
+    "escape-thread-root", "swallowed-error", "unmapped-http-error",
+    "resource-leak"}
+SOURCE_RULES = {
+    "key-reuse", "sync-in-loop", "f64-dtype", "syntax-error",
+    "guarded-field", "lock-order", "blocking-under-lock",
+    "notify-outside-lock", "unguarded-root-write", "escape-thread-root",
+    "swallowed-error", "unmapped-http-error", "resource-leak"}
 
 
 @pytest.mark.parametrize("args,rc,rules", [
@@ -37,10 +53,13 @@ FIXTURES = REPO / "tests" / "analysis_fixtures"
     ([str(FIXTURES / "bad_cost_regress.py")], 1, {"cost-roofline-regress"}),
     ([str(FIXTURES)], 1, {"surface-count", "padding-waste", "peak-bytes",
                           "cost-dead-compute", "cost-duality",
-                          "cost-roofline-regress"}),
+                          "cost-roofline-regress"} | REF_SOURCE_RULES),
     (["--only", "peak-bytes", "--hbm-bytes", "1000000"], 1,
      {"peak-bytes"}),
     ([str(FIXTURES), "--only", "cost-duality"], 1, {"cost-duality"}),
+    # no paths: the port's own package, clean under every pass
+    ([], 0, set()),
+    ([str(TORCH_FIXTURES)], 1, SOURCE_RULES),
 ])
 def test_cli_exit_codes_and_json(tmp_path, args, rc, rules):
     out = tmp_path / "r.json"
@@ -51,13 +70,54 @@ def test_cli_exit_codes_and_json(tmp_path, args, rc, rules):
     assert report["n_diagnostics"] == len(report["diagnostics"])
 
 
-@pytest.mark.parametrize("rule", ["jaxpr-peak-bytes", "jaxpr-f64",
-                                  "lock-order", "key-reuse",
-                                  "swallowed-error", "phantom-reader"])
+@pytest.mark.parametrize("rule", ["phantom-reader", "schema-drift",
+                                  "dead-counter", "event-vocab",
+                                  "doc-drift"])
 def test_unported_rule_exits_2_naming_the_queue(capsys, rule):
+    """The name-contracts rules are the reference's pass still to port."""
     assert analysis_main(["--only", rule]) == 2
     err = capsys.readouterr().err
     assert rule in err and "ROADMAP.md, Queue 1 item 4" in err
+
+
+@pytest.mark.parametrize("rule", ["jaxpr-peak-bytes", "jaxpr-f64",
+                                  "traced-branch", "retrace-risk",
+                                  "weak-static-arg", "kernel-tracer-closure",
+                                  "module-jnp-const", "mesh-axis"])
+def test_jit_only_rule_exits_2_as_not_applicable(capsys, rule):
+    assert analysis_main(["--only", rule]) == 2
+    err = capsys.readouterr().err
+    assert rule in err and "not applicable to eager PyTorch" in err
+    assert "ROADMAP" not in err
+
+
+@pytest.mark.parametrize("rule,bad,ok", [
+    ("lock-order", "bad_lock_order.py", "ok_lock_order.py"),
+    ("key-reuse", "bad_key_reuse.py", "ok_key_reuse.py"),
+    ("swallowed-error", "bad_swallowed_error.py", "ok_swallowed_error.py"),
+    ("sync-in-loop", "bad_sync_loop.py", "ok_sync_loop.py"),
+    ("f64-dtype", "bad_f64.py", "ok_f64.py"),
+    ("blocking-under-lock", "bad_blocking_sync.py", "ok_blocking_sync.py"),
+])
+def test_ported_rule_exits_1_on_bad_and_0_on_ok(capsys, rule, bad, ok):
+    assert analysis_main(["--only", rule, "--quiet",
+                          str(TORCH_FIXTURES / bad)]) == 1
+    assert analysis_main(["--only", rule, str(TORCH_FIXTURES / bad)]) == 1
+    assert f"[{rule}]" in capsys.readouterr().out
+    assert analysis_main(["--only", rule, "--quiet",
+                          str(TORCH_FIXTURES / ok)]) == 0
+
+
+def test_package_scan_at_the_synthetic_budget_still_fires_peak_bytes():
+    """The package's posture is priced at the port's card; at the
+    reference's synthetic 24 GiB the top bucket's batch kinds do not
+    fit, and the rule says so."""
+    assert tfp.H100_HBM_BYTES > tfp.CHIP_HBM_BYTES_DEFAULT
+    diags, _ = tfp.evaluate(tfp.SurfaceSpec(), rules={"peak-bytes"})
+    assert diags and {d.rule for d in diags} == {"peak-bytes"}
+    diags, _ = tfp.evaluate(tfp.SurfaceSpec(hbm_bytes=tfp.H100_HBM_BYTES),
+                            rules={"peak-bytes"})
+    assert not diags
 
 
 @pytest.mark.parametrize("args,words", [
@@ -92,6 +152,8 @@ def test_python_m_on_the_default_posture_writes_both_blocks(tmp_path):
     assert report["cost"]["calibration"]["bucket"] == "n64_e96"
     assert "fcheck-footprint:" in proc.stdout
     assert proc.returncode == (1 if report["diagnostics"] else 0)
+    # the package's own scan is clean
+    assert proc.returncode == 0 and report["n_files"] > 50
 
 
 # -- the server's flags --------------------------------------------------

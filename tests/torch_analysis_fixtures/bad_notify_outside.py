@@ -1,0 +1,15 @@
+"""Violating fixture: a batch queue notifies its condition after the
+with-block has released it."""
+
+import threading
+
+
+class BatchQueue:
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._jobs = []
+
+    def submit(self, job):
+        with self._cond:
+            self._jobs.append(job)
+        self._cond.notify()               # not held: RuntimeError
