@@ -115,7 +115,10 @@ Phases (any failure exits non-zero without the final line):
              equal to run_consensus on its bucket slab, each batch job to
              its solo run (phase 17's when it ran), the delta to the
              library path (serve/delta.py + run_consensus(init_labels=,
-             active_mask=)); per job the queue wait, device and total
+             active_mask=)); the live /metricsz held to the committed
+             contract inventory (analysis/contracts.assert_covered, every
+             metric name a writer the static pass knows); per job the
+             queue wait, device and total
              milliseconds, rung and compiles, each bucket's cost prior
              beside its device time, the delta's wall beside the lfr10k
              job's, the cache hit's latency, the peak device memory;
@@ -130,7 +133,9 @@ Phases (any failure exits non-zero without the final line):
              the same bucketed run by the library, pad_to_bucket +
              run_consensus), SIGTERM (drain, cache spill, exit 0), a
              restart on the same cache file answering the louvain repeat
-             from the cache with 0 compiles and the same bytes
+             from the cache with 0 compiles and the same bytes; each
+             server's /metricsz held to the contract inventory before
+             it drains
 19. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
              process) over two python -m fastconsensus_tpu_torch.serve
              --max-batch 4 replicas sharing the card (spawned together,
@@ -146,10 +151,17 @@ Phases (any failure exits non-zero without the final line):
              builds; row_totals launches summed over the replicas'
              /metricsz, per shape as in 7; each replica's device memory,
              the card's used memory and the router's proxy overhead per
-             replica (/fleetz).  Then SIGKILL of the karate louvain
+             replica (/fleetz); every replica's and the router's
+             /metricsz held to the contract inventory, and the
+             telemetry.fleet_latency block (obs/fleettrace.
+             fleet_latency_block, bench.py's shape) built from the /fleetz
+             scrape, printed and held to obs/history.check_fleet_latency
+             (every replica scraped, an exact merge, the fleet p95 no
+             higher than the worst replica's).  Then SIGKILL of the karate louvain
              group's home once its spill file holds what it served,
              on_death, and the resubmit answered from the successor's
              inherited cache (kill-to-answer seconds); add_replica("r2")
+             (its /metricsz held to the contract inventory)
              with prewarm shipping, armed with the drain-time spill fault
              (FCTPU_FAULT_INJECT ...ResultCache.spill:OSError, count 1;
              a site analysis/fault_inventory.json lists, absorbed by
@@ -223,6 +235,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
 
+# the serve counters phase serve's part A prints (a module constant, so
+# that the contract pass resolves each name this file reads)
+SERVE_SHOWN = ("batch.coalesced", "batch.occupancy", "batch.fallback_solo",
+               "pool.deque_coalesced", "queue.coalesced_pops",
+               "xla_compiles")
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -234,6 +253,29 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def contract_check(state, what: str, snapshot) -> int:
+    """Hold one live /metricsz snapshot to the committed fcheck-contract
+    inventory (analysis/contract_inventory.json): every metric name in
+    it must be covered by a writer template the static pass found.  A
+    missing inventory or a stray name fails the phase."""
+    from fastconsensus_tpu_torch.analysis import contracts
+
+    t0 = time.perf_counter()
+    if "contract_inventory" not in state:
+        state["contract_inventory"] = contracts.load_inventory(str(
+            ROOT / "fastconsensus_tpu_torch" / "analysis" /
+            "contract_inventory.json"))
+    try:
+        n = contracts.assert_covered(snapshot, state["contract_inventory"])
+    except AssertionError as e:
+        raise PhaseError(f"{what}: {e}") from None
+    dt = time.perf_counter() - t0
+    state["contract_s"] = state.get("contract_s", 0.0) + dt
+    log(f"{what}: {n} live metric names, each covered by the contract "
+        f"inventory ({dt * 1e3:.2f} ms)")
+    return n
 
 
 def sync() -> None:
@@ -1949,6 +1991,7 @@ def _serve_part_b(state):
                                                    run_consensus)
     from fastconsensus_tpu_torch.models.registry import get_detector
     from fastconsensus_tpu_torch.serve import bucketer
+    from fastconsensus_tpu_torch.serve.client import ServeClient
     from fastconsensus_tpu_torch.utils.io import (read_edgelist,
                                                   write_partition_dirs)
 
@@ -2032,6 +2075,8 @@ def _serve_part_b(state):
                 _served_partitions(res.partitions, len(ids)), ids)
             _check_same_trees(f"serve B: --server --alg {alg}",
                               root / f"served_{alg}", ref)
+        contract_check(state, "serve B: the server's /metricsz",
+                       ServeClient(url).metricsz())
     finally:
         out = stop(proc)
     check("drained cleanly" in out and cache.exists(),
@@ -2046,6 +2091,8 @@ def _serve_part_b(state):
               f"{msg}")
         _check_same_trees("serve B: repeat after restart",
                           root / "again", root / "served_louvain")
+        contract_check(state, "serve B: the restarted server's /metricsz",
+                       ServeClient(url).metricsz())
     finally:
         stop(proc)
     log(f"serve B: restarted in {up_s:.2f}s on the same --cache-file; the "
@@ -2187,6 +2234,7 @@ def phase_serve(state):
                 os.environ["FCTPU_DETECT_CALL_MEMBERS"] = saved_env
             obs_counters._REGISTRY = saved_reg
     check(drained, "serve: part A did not drain")
+    contract_check(state, "serve A: /metricsz", metrics)
     # the observed lock order, in union with the static graph, is acyclic
     pkg = ROOT / "fastconsensus_tpu_torch"
     t_static = time.perf_counter()
@@ -2235,10 +2283,8 @@ def phase_serve(state):
         f"wall {delta_wall:.2f}s (submit to done) against the lfr10k "
         f"job's {solo.timing()['e2e_ms'] / 1e3:.2f}s; cache hit answered "
         f"at submit in {hit_ms:.3f} ms, no launch, compiles 0")
-    shown = ("batch.coalesced", "batch.occupancy", "batch.fallback_solo",
-             "pool.deque_coalesced", "queue.coalesced_pops", "xla_compiles")
     log("serve A: counters " + ", ".join(
-        f"{k} {counters.get('serve.' + k, 0)}" for k in shown) +
+        f"{k} {counters.get('serve.' + k, 0)}" for k in SERVE_SHOWN) +
         f"; launches {launches} "
         f"row_totals_launches_by_shape={sorted(shapes.items())}")
     # each served result against its library counterpart on the card
@@ -2317,8 +2363,9 @@ def phase_fleet(state):
                                                    run_consensus)
     from fastconsensus_tpu_torch.models.registry import get_detector
     from fastconsensus_tpu_torch.obs import counters as obs_counters
-    from fastconsensus_tpu_torch.obs import postmortem
+    from fastconsensus_tpu_torch.obs import history, postmortem
     from fastconsensus_tpu_torch.obs.fleettrace import (REPLICA_SEP,
+                                                        fleet_latency_block,
                                                         proxy_overhead)
     from fastconsensus_tpu_torch.serve import bucketer
     from fastconsensus_tpu_torch.serve.cache import ResultCache
@@ -2476,6 +2523,7 @@ def phase_fleet(state):
             "serve.batch.coalesced", 0)
         check(coalesced >= 1, f"fleet: {home_a} counted no coalesced batch")
         for name, m in replica_m.items():
+            contract_check(state, f"fleet: {name}'s /metricsz", m)
             c = m["fcobs"]["counters"]
             check(c.get("serve.xla_compiles", 0) == 0,
                   f"fleet: {name} built kernels "
@@ -2512,6 +2560,25 @@ def phase_fleet(state):
         log("fleet: router proxy overhead per replica " + ", ".join(
             f"{n}: {o['count']} hops, p50 {o['p50_s'] * 1e3:.3f} ms, "
             f"p95 {o['p95_s'] * 1e3:.3f} ms" for n, o in sorted(over.items())))
+        # bench.py serve_fleet's telemetry.fleet_latency block from this
+        # scrape, the replicas' own histograms scraped after it with no
+        # traffic between, held to the reference's gate
+        t_fl = time.perf_counter()
+        rep_hists = {n: (ServeClient(r.base_url).metricsz().get("latency")
+                         or {}).get("histograms") or []
+                     for n, r in fleet.replicas.items()}
+        block = fleet_latency_block(fz, rep_hists)
+        findings = history.check_fleet_latency({"fleet": [
+            {"seq": 1, "source": "chip_smoke", "fleet_latency": block}]})
+        state["contract_s"] = (state.get("contract_s", 0.0) +
+                               time.perf_counter() - t_fl)
+        log("fleet: telemetry.fleet_latency " + json.dumps(block,
+                                                          sort_keys=True))
+        check(block["replicas_scraped"] == len(fleet.replicas) and
+              not findings, f"fleet: check_fleet_latency on the /fleetz "
+                            f"block: {findings}")
+        contract_check(state, "fleet: the router's /metricsz",
+                       client.metricsz())
 
         # -- kill and inherit ------------------------------------------
         victim = jobs["karate louvain"][2]["fleet_replica"]
@@ -2564,6 +2631,7 @@ def phase_fleet(state):
         check(shipped.get("serve.fleet.prewarm_shipped", 0) >= 1,
               "fleet: the joiner was not prewarmed by prewarm shipping")
         m2 = ServeClient(fleet.replicas["r2"].base_url).metricsz()
+        contract_check(state, "fleet: r2's /metricsz", m2)
         c2 = m2["fcobs"]["counters"]
         check(c2.get("serve.xla_compiles", 0) == 0 and
               c2.get("serve.prewarm.compiles", 0) == 0,
@@ -3136,6 +3204,9 @@ def main(argv=None) -> int:
             return 1
         log(f"== phase {name} ok in {time.perf_counter() - t0:.2f}s")
     log(f"total {time.perf_counter() - t_all:.2f}s")
+    if "contract_s" in state:
+        log(f"contract checks (inventory load, assert_covered, the "
+            f"fleet_latency block and its gate) {state['contract_s']:.4f}s")
     if "kernels" in phases:
         log(kernels_line(state))
     log(smi_line())

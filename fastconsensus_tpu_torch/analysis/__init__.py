@@ -30,13 +30,19 @@
   kind, the counterpart of the reference's serving-executable tracer;
 * **analysis/cost.py** — the torch-free cost mirror, the priors the
   shaper and the scheduler read, and the cost rules;
+* **analysis/contracts.py** — the name-contract pass
+  (``phantom-reader``, ``schema-drift``, ``dead-counter``,
+  ``event-vocab``, ``doc-drift``) over the metric names and wire keys
+  the package writes and its gates, typed client, ``chip_smoke.py`` and
+  docs read; its inventory (``analysis/contract_inventory.json``) backs
+  the live ``/metricsz`` cross-check (``contracts.assert_covered``) and
+  ``COUNTERS.md``;
 * **analysis/diagnostics.py** — the reference's ``Diagnostic`` and
   report, unchanged;
 * **analysis/recompile_guard.py** — :class:`CompileGuard`, counting the
   builds the port really runs (an ``nvcc`` build of a CUDA kernel, the
   ``g++`` build of the host C++ library) on the thread that runs them.
 
-Not ported yet (ROADMAP.md, Queue 1 item 4): the name-contracts pass.
 The reference's jit-only lint rules and its jaxpr audit have no
 counterpart in eager PyTorch.
 """
@@ -92,17 +98,19 @@ def lint_paths(paths, report=None):
     """Lint every ``.py`` under ``paths`` (files or directories) into a
     Report (created if not given).
 
-    Four passes, the reference's minus its name contracts: the first
-    summarizes every function's PRNG-key consumption
-    (astlint.summarize_key_params), the second lints with that table in
-    hand (so ``key-reuse`` tracks keys through helper calls across
-    module boundaries), the third runs the whole-program concurrency
-    analysis and the fourth the whole-program fault pass, over the same
-    source set."""
+    Five passes, as the reference's: the first summarizes every
+    function's PRNG-key consumption (astlint.summarize_key_params), the
+    second lints with that table in hand (so ``key-reuse`` tracks keys
+    through helper calls across module boundaries), then the
+    whole-program concurrency, fault and name-contract passes run over
+    the same source set (the contract pass in repo mode when the set
+    covers the package's serving/obs surface, in fixture mode on every
+    file with a ``CONTRACT_SPEC``)."""
     from fastconsensus_tpu_torch.analysis.astlint import (
         lint_source, summarize_key_params)
     from fastconsensus_tpu_torch.analysis.concurrency import \
         check_concurrency
+    from fastconsensus_tpu_torch.analysis.contracts import check_contracts
     from fastconsensus_tpu_torch.analysis.diagnostics import Report
     from fastconsensus_tpu_torch.analysis.faults import check_faults
 
@@ -122,7 +130,7 @@ def lint_paths(paths, report=None):
         report.extend(diags)
         report.n_suppressed += suppressed
         report.n_files += 1
-    for check in (check_concurrency, check_faults):
+    for check in (check_concurrency, check_faults, check_contracts):
         diags, suppressed = check(sources)
         report.extend(diags)
         report.n_suppressed += suppressed

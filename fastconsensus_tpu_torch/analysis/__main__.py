@@ -15,10 +15,17 @@ tables and the derived chip ceiling, at the memory of the card the port
 is built for (``footprint.H100_HBM_BYTES``) unless ``--hbm-bytes`` says
 otherwise.
 
+The name-contract pass (``analysis/contracts.py``) runs inside the
+source passes: in repo mode on a scan of the package, in fixture mode on
+``CONTRACT_SPEC`` files.  ``--emit-inventory PATH`` writes its
+writer/reader inventory (committed as
+``analysis/contract_inventory.json``, the static half of the live
+``/metricsz`` cross-check) and ``--emit-appendix`` prints the package's
+``COUNTERS.md`` and exits.
+
 Of the reference's other rules, the jit-only lint rules and the jaxpr
 audit have no counterpart in eager PyTorch (their ids exit 2, "not
-applicable"), and the name-contracts pass is not ported yet (its ids
-exit 2 naming ROADMAP.md, Queue 1 item 4).
+applicable").
 """
 
 from __future__ import annotations
@@ -36,9 +43,6 @@ NOT_APPLICABLE_PREFIXES = ("jaxpr-", "trace-error")
 NOT_APPLICABLE_RULES = (
     "traced-branch", "retrace-risk", "weak-static-arg",
     "kernel-tracer-closure", "module-jnp-const", "mesh-axis")
-# The reference's name-contracts rules, not ported yet.
-NOT_PORTED_RULES = ("phantom-reader", "schema-drift", "dead-counter",
-                    "event-vocab", "doc-drift")
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,9 +66,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m fastconsensus_tpu_torch.analysis",
         description="fcheck for the PyTorch port: the AST lint, "
-                    "concurrency and fault-flow passes over the sources, "
-                    "and the footprint and cost passes over the serving "
-                    "posture")
+                    "concurrency, fault-flow and name-contract passes over "
+                    "the sources, and the footprint and cost passes over "
+                    "the serving posture")
     parser.add_argument("paths", nargs="*",
                         help="files or directories to scan (default: the "
                              "fastconsensus_tpu_torch package)")
@@ -108,6 +112,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "boundary the fault pass claims absorbs it "
                              "(committed as analysis/fault_inventory."
                              "json; serve/faultinject.py arms its sites)")
+    parser.add_argument("--emit-inventory", metavar="PATH", default=None,
+                        help="write the fcheck-contract writer/reader "
+                             "inventory (committed as analysis/"
+                             "contract_inventory.json: the static half of "
+                             "the live /metricsz cross-check and the "
+                             "source of COUNTERS.md); needs a package scan")
+    parser.add_argument("--emit-appendix", action="store_true",
+                        help="print the package's COUNTERS.md, generated "
+                             "from the inventory, and exit (redirect it "
+                             "into fastconsensus_tpu_torch/COUNTERS.md)")
     parser.add_argument("--quiet", action="store_true",
                         help="suppress per-diagnostic output")
     args = parser.parse_args(argv)
@@ -118,12 +132,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     from fastconsensus_tpu_torch.analysis.astlint import ASTLINT_RULES
     from fastconsensus_tpu_torch.analysis.concurrency import \
         CONCURRENCY_RULES
+    from fastconsensus_tpu_torch.analysis.contracts import CONTRACT_RULES
     from fastconsensus_tpu_torch.analysis.diagnostics import Report
     from fastconsensus_tpu_torch.analysis.faults import FAULT_RULES
 
     known = set(ASTLINT_RULES) | set(CONCURRENCY_RULES) | \
         set(FAULT_RULES) | set(fpmod.FOOTPRINT_RULES) | \
-        set(costmod.COST_RULES)
+        set(costmod.COST_RULES) | set(CONTRACT_RULES)
     only = None
     if args.only:
         only = {r.strip() for r in args.only.split(",") if r.strip()}
@@ -135,13 +150,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"and Pallas lowering, which the port does not use; "
                   f"known rules: {', '.join(sorted(known))}",
                   file=sys.stderr)
-            return 2
-        later = only & set(NOT_PORTED_RULES)
-        if later:
-            print(f"fcheck: rule id(s) {', '.join(sorted(later))} belong "
-                  f"to the reference's name-contracts pass, which the port "
-                  f"has not ported (ROADMAP.md, Queue 1 item 4); known "
-                  f"rules: {', '.join(sorted(known))}", file=sys.stderr)
             return 2
         unknown = only - known
         if unknown:
@@ -227,6 +235,21 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 2
         _write(args.emit_fault_inventory,
                json.dumps(inventory, indent=2, sort_keys=True) + "\n")
+    if args.emit_inventory or args.emit_appendix:
+        from fastconsensus_tpu_torch.analysis import contracts
+
+        try:
+            inventory = contracts.inventory_from_paths(paths)
+        except (ValueError, OSError) as e:
+            print(f"fcheck: {e}", file=sys.stderr)
+            return 2
+        if args.emit_inventory:
+            _write(args.emit_inventory,
+                   json.dumps(inventory, indent=2, sort_keys=True) + "\n")
+        if args.emit_appendix:
+            # generator mode, not a gate: a test holds COUNTERS.md to it
+            sys.stdout.write(contracts.render_counters_doc(inventory))
+            return 0
     if args.json:
         _write(args.json, report.to_json())
     if not args.quiet:

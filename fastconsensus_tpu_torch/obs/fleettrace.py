@@ -3,7 +3,11 @@
 The port's own copy of ``fastconsensus_tpu/obs/fleettrace.py``, apart
 from the package name unchanged: the merge rests on the port's
 ``obs/latency.py`` and ``obs/flight.py``, themselves unchanged copies,
-so a fleet of either package's replicas merges the same way.
+so a fleet of either package's replicas merges the same way.  One
+function is the port's own: :func:`fleet_latency_block`, the
+``telemetry.fleet_latency`` block that the reference's ``bench.py
+serve_fleet`` builds inline from its ``/fleetz`` scrape and that
+``obs/history.py``'s ``check_fleet_latency`` gates.
 
 Every observability layer below this one stops at the process
 boundary: fclat histograms and fcflight rings describe ONE replica,
@@ -164,6 +168,65 @@ def aggregate_fleet(replica_metrics: Dict[str, Optional[Dict[str, Any]]],
     if router_fleet is not None:
         out["fleet"] = router_fleet
     return out
+
+
+def _merged_p95_ms(hists, name: str) -> Optional[float]:
+    """p95 (ms) over the union of every ``name`` histogram's samples,
+    tags ignored: exact on the shared fixed-bucket grid."""
+    rows = [h for h in hists if h.get("name") == name]
+    if not rows:
+        return None
+    p95 = obs_latency.merge_snapshots(rows).get("p95_s")
+    return None if p95 is None else round(p95 * 1000.0, 3)
+
+
+def _hist_counts(hists) -> Dict[Tuple[str, Tuple[Tuple[str, str], ...]],
+                                int]:
+    out: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], int] = {}
+    for h in hists:
+        key = (str(h.get("name")),
+               tuple(sorted((str(k), str(v)) for k, v in
+                            (h.get("tags") or {}).items())))
+        out[key] = out.get(key, 0) + int(h.get("count", 0))
+    return out
+
+
+def fleet_latency_block(fleetz: Dict[str, Any],
+                        replica_histograms: Dict[str, List[Dict[str, Any]]]
+                        ) -> Dict[str, Any]:
+    """The ``telemetry.fleet_latency`` block of a ``/fleetz`` scrape, in
+    the reference's ``bench.py serve_fleet`` shape: replicas scraped and
+    down, whether the fleet histograms are exactly the sum of the
+    replicas' own (``replica_histograms``: each replica's ``/metricsz``
+    ``latency.histograms``, scraped after ``/fleetz`` with no traffic
+    between), the router's phase p95s, the per-replica proxy overhead
+    p95, and the fleet-merged ``serve.e2e`` p95 beside the worst single
+    replica's.  Times in milliseconds."""
+    replicas = fleetz.get("replicas") or {}
+    router = fleetz.get("router") or {}
+    fleet_hists = (fleetz.get("latency") or {}).get("histograms") or ()
+    router_hists = (router.get("latency") or {}).get("histograms") or ()
+    worst_e2e = [v for v in (_merged_p95_ms(hs, "serve.e2e")
+                             for hs in replica_histograms.values())
+                 if v is not None]
+    return {
+        "replicas_scraped": sum(1 for r in replicas.values()
+                                if r.get("ok")),
+        "replicas_down": sorted(nm for nm, r in replicas.items()
+                                if not r.get("ok")),
+        "merge_exact": _hist_counts(
+            h for hs in replica_histograms.values() for h in hs)
+        == _hist_counts(fleet_hists),
+        "router_phase_p95_ms": {
+            ph: _merged_p95_ms(router_hists, f"router.phase.{ph}")
+            for ph in ("admit", "ring_lookup", "proxy", "replay")},
+        "proxy_overhead_p95_ms": {
+            nm: (None if (v or {}).get("p95_s") is None
+                 else round(float(v["p95_s"]) * 1000.0, 3))
+            for nm, v in (router.get("proxy_overhead") or {}).items()},
+        "fleet_e2e_p95_ms": _merged_p95_ms(fleet_hists, "serve.e2e"),
+        "worst_replica_e2e_p95_ms": max(worst_e2e) if worst_e2e else None,
+    }
 
 
 # ---------------------------------------------------------------------

@@ -36,6 +36,10 @@ REF_SOURCE_RULES = {
     "blocking-under-lock", "notify-outside-lock", "unguarded-root-write",
     "escape-thread-root", "swallowed-error", "unmapped-http-error",
     "resource-leak"}
+# the name-contract rules: each fires in fixture mode on its bad_ fixture
+# in the reference's directory
+CONTRACT_RULES = {"phantom-reader", "schema-drift", "dead-counter",
+                  "event-vocab", "doc-drift"}
 SOURCE_RULES = {
     "key-reuse", "sync-in-loop", "f64-dtype", "syntax-error",
     "guarded-field", "lock-order", "blocking-under-lock",
@@ -53,7 +57,8 @@ SOURCE_RULES = {
     ([str(FIXTURES / "bad_cost_regress.py")], 1, {"cost-roofline-regress"}),
     ([str(FIXTURES)], 1, {"surface-count", "padding-waste", "peak-bytes",
                           "cost-dead-compute", "cost-duality",
-                          "cost-roofline-regress"} | REF_SOURCE_RULES),
+                          "cost-roofline-regress"} | REF_SOURCE_RULES |
+     CONTRACT_RULES),
     (["--only", "peak-bytes", "--hbm-bytes", "1000000"], 1,
      {"peak-bytes"}),
     ([str(FIXTURES), "--only", "cost-duality"], 1, {"cost-duality"}),
@@ -70,14 +75,20 @@ def test_cli_exit_codes_and_json(tmp_path, args, rc, rules):
     assert report["n_diagnostics"] == len(report["diagnostics"])
 
 
-@pytest.mark.parametrize("rule", ["phantom-reader", "schema-drift",
-                                  "dead-counter", "event-vocab",
-                                  "doc-drift"])
-def test_unported_rule_exits_2_naming_the_queue(capsys, rule):
-    """The name-contracts rules are the reference's pass still to port."""
-    assert analysis_main(["--only", rule]) == 2
-    err = capsys.readouterr().err
-    assert rule in err and "ROADMAP.md, Queue 1 item 4" in err
+@pytest.mark.parametrize("rule", sorted(CONTRACT_RULES))
+def test_contract_rule_runs_clean_on_the_package_and_fires_on_its_fixture(
+        tmp_path, capsys, rule):
+    """Each name-contract rule runs: the package scans clean under it
+    (repo mode), and its bad_ fixture exits 1 naming that rule alone."""
+    assert analysis_main(["--only", rule, "--quiet", "--no-footprint"]) == 0
+    bad = FIXTURES / f"bad_{rule.replace('-', '_')}.py"
+    capsys.readouterr()
+    assert analysis_main(["--only", rule, str(bad)]) == 1
+    assert f"[{rule}]" in capsys.readouterr().out
+    out = tmp_path / "r.json"
+    assert analysis_main([str(bad), "--json", str(out), "--quiet"]) == 1
+    assert {d["rule"] for d in json.loads(out.read_text())["diagnostics"]} \
+        == {rule}
 
 
 @pytest.mark.parametrize("rule", ["jaxpr-peak-bytes", "jaxpr-f64",

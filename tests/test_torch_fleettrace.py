@@ -7,10 +7,15 @@ against the reference's.
   incident merge, the ``render`` CLI with torch and jax poisoned,
   ``collect_bundles``' layout, a trace id across router and a port
   replica, the trace outside the content hash, ``/fleetz`` over a live
-  port replica, and the typed blocks with torch and jax poisoned.  The
-  reference's two ``check_fleet_latency`` tests are not mirrored: they
-  test ``obs/history.py``, the reader of the bench artifacts, which the
-  port gets once it has a bench history.
+  port replica, the typed blocks with torch and jax poisoned, and the
+  two ``check_fleet_latency`` tests, against the port's
+  ``obs/history.py``.
+* ``fleet_latency_block`` (bench.py serve_fleet's
+  ``telemetry.fleet_latency`` block, the port's own function): on
+  seeded replica and router registries, the merged p95s equal the
+  reference's ``merge_snapshots`` on the same histograms, the block
+  passes ``check_fleet_latency`` in both packages, and a down replica
+  or a histogram missing from the fleet view is a finding.
 * Cross-package parity on seeded inputs: ``proxy_overhead``,
   ``aggregate_fleet``, ``merged_timeline`` and ``render_timeline`` give
   equal JSON and text in both packages on the same registries and
@@ -510,3 +515,160 @@ def test_incident_merge_equals_the_reference(tmp_path, seed):
     assert full["replicas"] == ["r0", "r1", "r2"]
     assert full["skipped_bundles"] == ["r9__fcflight_x"]
     assert full["n_events"] == 120    # the second snapshots deduplicated
+
+
+# -- the fctrace gate (obs/history.py check_fleet_latency) ---------------
+
+
+def _fl_rec(seq, fl):
+    return {"seq": seq, "source": f"bench_serve_fleet_r{seq}.json",
+            "fleet_latency": fl}
+
+
+def _healthy_fl(**over):
+    fl = {"replicas_scraped": 3, "replicas_down": [],
+          "merge_exact": True,
+          "router_phase_p95_ms": {"admit": 0.05, "ring_lookup": 0.01,
+                                  "proxy": 2.0, "replay": None},
+          "proxy_overhead_p95_ms": {"r0": 2.0, "r1": 2.5},
+          "fleet_e2e_p95_ms": 40.0,
+          "worst_replica_e2e_p95_ms": 45.0}
+    fl.update(over)
+    return fl
+
+
+def test_check_fleet_latency_absolute_rules():
+    from fastconsensus_tpu_torch.obs import history
+
+    clean = {"c": [_fl_rec(18, _healthy_fl())]}
+    assert history.check_fleet_latency(clean) == []
+
+    down = {"c": [_fl_rec(18, _healthy_fl(replicas_down=["r2"]))]}
+    assert any("could not scrape" in p
+               for p in history.check_fleet_latency(down))
+
+    inexact = {"c": [_fl_rec(18, _healthy_fl(merge_exact=False))]}
+    assert any("inexact" in p
+               for p in history.check_fleet_latency(inexact))
+
+    # merged fleet p95 above the worst component: impossible for a
+    # correct mixture quantile, so the gate calls the merge wrong
+    broken = {"c": [_fl_rec(18, _healthy_fl(
+        fleet_e2e_p95_ms=80.0, worst_replica_e2e_p95_ms=45.0))]}
+    assert any("mixture quantile" in p
+               for p in history.check_fleet_latency(broken))
+
+    # pre-fctrace artifacts pass vacuously
+    assert history.check_fleet_latency(
+        {"c": [{"seq": 17, "source": "s", "fleet_latency": None}]}) == []
+
+
+def test_check_fleet_latency_trajectory_rules():
+    from fastconsensus_tpu_torch.obs import history
+
+    hist = [_fl_rec(16, _healthy_fl()), _fl_rec(17, _healthy_fl())]
+    ok = {"c": hist + [_fl_rec(18, _healthy_fl(
+        fleet_e2e_p95_ms=60.0, worst_replica_e2e_p95_ms=62.0))]}
+    assert history.check_fleet_latency(ok) == []
+
+    # e2e p95 more than doubles the prior median: finding
+    slow = {"c": hist + [_fl_rec(18, _healthy_fl(
+        fleet_e2e_p95_ms=90.0, worst_replica_e2e_p95_ms=95.0))]}
+    assert any("tail regressed" in p
+               for p in history.check_fleet_latency(slow))
+
+    # worst-replica proxy overhead grows past its own bound: finding
+    hop = {"c": hist + [_fl_rec(18, _healthy_fl(
+        proxy_overhead_p95_ms={"r0": 2.0, "r1": 9.0}))]}
+    assert any("proxy overhead" in p
+               for p in history.check_fleet_latency(hop))
+
+    # only the NEWEST sequence is judged: an old bad record is history
+    old_bad = {"c": [_fl_rec(16, _healthy_fl(merge_exact=False)),
+                     _fl_rec(18, _healthy_fl())]}
+    assert history.check_fleet_latency(old_bad) == []
+
+
+def _seeded_fleet(seed):
+    """Three replica registries and a router registry with seeded
+    lognormal samples: the replicas' ``/metricsz`` latency blocks and the
+    ``/fleetz`` payload over them."""
+    rng = np.random.default_rng(seed)
+    regs = {f"r{i}": latency.LatencyRegistry() for i in range(3)}
+    router = latency.LatencyRegistry()
+    for name, reg in regs.items():
+        scale = float(rng.uniform(-4.0, -2.0))
+        for k in range(300):
+            reg.hist("serve.e2e", bucket=f"n64_e{96 + 32 * (k % 2)}") \
+                .record(float(rng.lognormal(scale, 1.0)))
+            reg.hist("serve.phase.device").record(
+                float(rng.lognormal(scale - 1.0, 0.5)))
+            router.hist("router.phase.proxy", replica=name).record(
+                float(rng.lognormal(-6.0, 0.4)))
+    for ph in ("admit", "ring_lookup"):
+        for _ in range(200):
+            router.hist(f"router.phase.{ph}").record(
+                float(rng.lognormal(-9.0, 0.3)))
+    metrics = {n: {"scope": "replica", "latency": r.snapshot(),
+                   "fcobs": {"counters": {}}} for n, r in regs.items()}
+    fz = fleettrace.aggregate_fleet(metrics,
+                                    router_latency=router.snapshot())
+    hists = {n: m["latency"]["histograms"] for n, m in metrics.items()}
+    return fz, hists
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fleet_latency_block_passes_both_gates(seed):
+    from fastconsensus_tpu.obs import history as jhist
+    from fastconsensus_tpu.obs import latency as jlat
+    from fastconsensus_tpu_torch.obs import history
+
+    fz, hists = _seeded_fleet(seed)
+    block = fleettrace.fleet_latency_block(fz, hists)
+    assert block["replicas_scraped"] == 3 and block["replicas_down"] == []
+    assert block["merge_exact"] is True
+
+    def p95_ms(rows):
+        return round(jlat.merge_snapshots(rows)["p95_s"] * 1000.0, 3)
+
+    e2e = [h for hs in hists.values() for h in hs if h["name"] == "serve.e2e"]
+    assert block["fleet_e2e_p95_ms"] == p95_ms(e2e)
+    assert block["worst_replica_e2e_p95_ms"] == max(
+        p95_ms([h for h in hs if h["name"] == "serve.e2e"])
+        for hs in hists.values())
+    assert block["fleet_e2e_p95_ms"] <= block["worst_replica_e2e_p95_ms"]
+    router = fz["router"]["latency"]["histograms"]
+    assert block["router_phase_p95_ms"] == {
+        "admit": p95_ms([h for h in router
+                         if h["name"] == "router.phase.admit"]),
+        "ring_lookup": p95_ms([h for h in router
+                               if h["name"] == "router.phase.ring_lookup"]),
+        "proxy": p95_ms([h for h in router
+                         if h["name"] == "router.phase.proxy"]),
+        "replay": None}
+    assert sorted(block["proxy_overhead_p95_ms"]) == ["r0", "r1", "r2"]
+    groups = {"fleet": [{"seq": 1, "source": "chip_smoke",
+                         "fleet_latency": block}]}
+    assert history.check_fleet_latency(groups) == \
+        jhist.check_fleet_latency(groups) == []
+
+
+def test_fleet_latency_block_names_a_down_replica_and_an_inexact_merge():
+    from fastconsensus_tpu_torch.obs import history
+
+    fz, hists = _seeded_fleet(3)
+    metrics = {n: {"latency": {"histograms": hs}} for n, hs in hists.items()}
+    metrics["r3"] = None
+    down = fleettrace.aggregate_fleet(metrics)
+    block = fleettrace.fleet_latency_block(down, hists)
+    assert block["replicas_down"] == ["r3"]
+    probs = history.check_fleet_latency(
+        {"c": [{"seq": 1, "source": "s", "fleet_latency": block}]})
+    assert any("could not scrape r3" in p for p in probs)
+    # a replica's histograms that the fleet view lacks: inexact
+    extra = dict(hists, r9=hists["r0"])
+    block = fleettrace.fleet_latency_block(fz, extra)
+    assert block["merge_exact"] is False
+    probs = history.check_fleet_latency(
+        {"c": [{"seq": 1, "source": "s", "fleet_latency": block}]})
+    assert any("inexact" in p for p in probs)
