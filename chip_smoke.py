@@ -48,30 +48,43 @@ Phases (any failure exits non-zero without the final line):
              layout's wall, peak device memory (per card) and row_totals
              launches by shape; each sharded run must launch row_totals;
              row_totals per shape as in 7
-9. leiden_lfr10k  bench.py's lfr10k configuration on
+9. multiprocess  lfr100k through run_consensus(mesh=) run SPMD by 4
+             rank processes of this script on this one card, joined by
+             parallel.initialize_multihost(backend="gloo") (NCCL cannot
+             put two ranks on one GPU), each rank owning one mesh cell:
+             phase 8's settings in layouts (p=2, e=2) and (p=1, e=4);
+             every rank's partitions, rounds, integer round stats and
+             gathered slab bitwise equal to phase 8's unsharded run; each
+             rank's wall, peak device memory, seconds in detection and in
+             the collectives (its slowest four printed) and row_totals
+             launches, and every rank that detects must launch
+             row_totals; row_totals per shape as in 7.  Beside it, two ranks asking for NCCL on
+             this one card must be refused by name; where the machine has
+             two or more cards, one rank per card over NCCL instead
+10. leiden_lfr10k  bench.py's lfr10k configuration on
              bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
              max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
              peak memory and n_agg_overflow; row_totals per shape as in 7
-10. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
+11. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
              size_alpha 0.85, p_in 0.6, p_out 0.02, seed 42): lpm, n_p=50,
              tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
              kernel's sorted regime; row_totals per shape as in 7, and the
              vote's sorted-rank step timed at the run's shape
-11. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
+12. cnm_emaileu  the CLI with --alg cnm (host C++ detection, the tail on
              the card) on the emailEu stand-in: n_p=50, tau=0.7,
              delta=0.02, seed 0; rounds, wall, host C++ seconds and tail
              seconds per round, peak memory, member NMI to the planted
              labels
-12. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
+13. infomap_lfr10k  the same with --alg infomap on bench_data/lfr10k.npz:
              n_p=50, tau=0.6, delta=0.02, max_rounds=8; both cells are
              run once more on the CPU and must give identical partitions,
              round histories and output trees
-13. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
+14. resume   the CLI with --checkpoint/--resume: Louvain, n_p=8, forced
              hybrid rows on gpu_cpu's planted 5k graph; 4 rounds
              uninterrupted against 2 rounds resumed to 4, and against a
              card resume of a checkpoint the CPU wrote: equal partitions,
              histories and output trees
-14. recovery  the CLI with --checkpoint --resume --detect-cache
+15. recovery  the CLI with --checkpoint --resume --detect-cache
              --trace-jsonl --trace --dump-on-signal on resume's graph and
              settings, FCTPU_DETECT_CALL_MEMBERS=2: killed (SIGQUIT: a
              fcflight bundle naming the cache; then SIGKILL) once round
@@ -79,13 +92,13 @@ Phases (any failure exits non-zero without the final line):
              fastconsensus_tpu_torch.utils.supervise: output trees equal
              to an uninterrupted run's, cached chunks reused; row_totals
              per shape as in 7
-15. trace    the CLI on the same graph, 2 rounds, with the tracer off,
+16. trace    the CLI on the same graph, 2 rounds, with the tracer off,
              on (--trace), and on with --profile-dir: the Perfetto file's
              fcobs spans in order, its device track, the row_totals
              kernel events inside the run's spans, the JSONL counters and
              the device-memory gauge against max_memory_allocated; the
              three walls printed
-16. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
+17. delta    fcdelta on bench_data/lfr10k.npz (louvain, n_p=20, tau=0.2,
              delta=0.02, seed 0, at most 16 rounds): a parent run, a child
              graph with a seeded 1% edge delta (serve/delta.py), the
              incremental run from the parent's partitions with the
@@ -94,7 +107,7 @@ Phases (any failure exits non-zero without the final line):
              and the incremental run again on the CPU: identical
              partitions and integer history, frozen vertices at their
              parent labels; row_totals per shape as in 7
-17. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
+18. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
              (louvain, n_p=20, tau=0.2, delta=0.02, closure_tau=0.2, seeds
              11/22/33/44, at most 16 rounds): A, four emailEu stand-ins
              (graph seeds 42-45, the matmul sweep); B, lfr10k and three
@@ -103,17 +116,17 @@ Phases (any failure exits non-zero without the final line):
              solo walls, peak device memory of the batch and of the
              largest solo run, splits and rounds printed; batch A's peak
              within the member budget plus the slabs
-18. serve    the serving tier.  A, in this process: a ConsensusService
+19. serve    the serving tier.  A, in this process: a ConsensusService
              on the card (one worker, max_batch 4) behind its HTTP front
              end; lfr10k as a solo job (louvain, n_p=20, tau=0.2,
-             delta=0.02, seed 0, at most 16 rounds, phase 16's parent),
-             batch A's four jobs (phase 17) submitted concurrently while
+             delta=0.02, seed 0, at most 16 rounds, phase 17's parent),
+             batch A's four jobs (phase 18) submitted concurrently while
              it runs, which must coalesce into one rung-4 batch with no
-             solo fallback, phase 16's 1% delta against the lfr10k job
+             solo fallback, phase 17's 1% delta against the lfr10k job
              (served incremental), and the lfr10k job again (a
              submit-time cache hit: no launch, 0 compiles); the solo job
              equal to run_consensus on its bucket slab, each batch job to
-             its solo run (phase 17's when it ran), the delta to the
+             its solo run (phase 18's when it ran), the delta to the
              library path (serve/delta.py + run_consensus(init_labels=,
              active_mask=)); the live /metricsz held to the committed
              contract inventory (analysis/contracts.assert_covered, every
@@ -136,15 +149,15 @@ Phases (any failure exits non-zero without the final line):
              from the cache with 0 compiles and the same bytes; each
              server's /metricsz held to the contract inventory before
              it drains
-19. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
+20. fleet    the fleet tier (serve/fleet.py, serve/router.py, in this
              process) over two python -m fastconsensus_tpu_torch.serve
              --max-batch 4 replicas sharing the card (spawned together,
              each's seconds to a healthy /healthz): through the router,
-             karate with louvain and lpm (n_p 20, phase 18 B's), lfr10k
-             (phase 16's parent), batch A's four jobs (phase 17's),
+             karate with louvain and lpm (n_p 20, phase 19 B's), lfr10k
+             (phase 17's parent), batch A's four jobs (phase 18's),
              which share a route key and must coalesce into one rung-4
              batch on the ring's home for it, queued behind a running
-             job there, and phase 16's 1% delta (routed on its parent,
+             job there, and phase 17's 1% delta (routed on its parent,
              under the default DeltaPolicy; the decision and whether the
              parent was fetched across replicas printed); per job the
              replica, route key and timing block; every replica 0
@@ -175,7 +188,7 @@ Phases (any failure exits non-zero without the final line):
              (solo and karate jobs pad_to_bucket + run_consensus, batch
              jobs their solo runs, the delta the library path under the
              replica's decision); the phase's wall
-20. footprint the footprint memory model (analysis/entrypoints.py)
+21. footprint the footprint memory model (analysis/entrypoints.py)
              against the card: each serving kind's model at the job's
              own packed slab within [1, 2]x of the peak allocated over
              the baseline taken before its arguments (after a warm-up
@@ -197,17 +210,18 @@ Phases (any failure exits non-zero without the final line):
              derived ceiling and draining on SIGTERM
 
 Kernel launch counters are reset just before phases 6-7, each of
-phase 8's runs, phases 9-10, 13, 14 (its uninterrupted run), 15 (its
-profiled run), 16 (its incremental card run), 17, 18 (its part A) and
-20 (its lfr10k and lfr100k parts) and read just after: phases 7, 9-10,
-13-16, 18 and 20 and phase 8's sharded runs must launch
-``row_totals``, phase 6 ``fused_move_rows``; phase 17's bucketed slabs
+phase 8's runs and of phase 9's rank runs, phases 10-11, 14, 15 (its
+uninterrupted run), 16 (its profiled run), 17 (its incremental card
+run), 18, 19 (its part A) and 21 (its lfr10k and lfr100k parts) and read
+just after: phases 7, 10-11, 14-17, 19 and 21, phase 8's sharded runs
+and phase 9's detecting ranks must launch ``row_totals``, phase 6
+``fused_move_rows``; phase 18's bucketed slabs
 take the matmul and hash sweeps, which launch no kernel of the port (a
-job split off to a solo run may); phase 18's lfr10k jobs
+job split off to a solo run may); phase 19's lfr10k jobs
 start on the hash sweep and take hybrid rows once their budgets are
-re-derived.  Phase 19's replicas launch ``row_totals`` in their own
+re-derived.  Phase 20's replicas launch ``row_totals`` in their own
 processes, fresh ones, and report their counts in ``/metricsz``
-(``kernels``); phase 19 sums them over the replicas after its routed
+(``kernels``); phase 20 sums them over the replicas after its routed
 traffic and must find launches.  The second-to-last
 lines are the kernels' JSON record and the card's name and power limit;
 the last line is the device record.
@@ -933,10 +947,300 @@ def phase_mesh(state):
               f"mesh {name}: the gathered slab differs")
     log(f"mesh: {len(runs)} layouts bitwise equal (partitions, rounds, "
         f"integer stats, slab over {c} slots)")
+    state["mesh_unsharded"] = _host_result(base)
     log(f"mesh: {smi_line()}")
     per_shape = check_and_time_shapes(shapes_all, seed=4)
     state.setdefault("main_paths", {})["mesh"] = dict(
         launches=sum(shapes_all.values()), by_shape=per_shape)
+
+
+def _host_result(res) -> dict:
+    """A consensus result's partitions, rounds, history and gathered
+    slab, on the host."""
+    import numpy as np
+
+    g = res.graph
+    return dict(partitions=np.stack(res.partitions), rounds=res.rounds,
+                converged=res.converged, history=res.history,
+                **{f: getattr(g, f).cpu().numpy()
+                   for f in ("src", "dst", "weight", "alive")})
+
+
+def _check_same_result(what, got, base):
+    """``got`` against ``base`` (host results): partitions, rounds,
+    integer round stats and the slab over ``base``'s capacity, bitwise;
+    the slots past it dead."""
+    import numpy as np
+
+    check(int(got["rounds"]) == base["rounds"] and
+          bool(got["converged"]) == base["converged"],
+          f"{what}: rounds {got['rounds']} != {base['rounds']}")
+    check(np.array_equal(got["partitions"], base["partitions"]),
+          f"{what}: partitions differ from the unsharded run's")
+    check(len(got["history"]) == len(base["history"]) and all(
+        a[k] == b[k] for a, b in zip(got["history"], base["history"])
+        for k in HISTORY_INTS if k != "capacity"),
+        f"{what}: integer round stats differ")
+    c = base["src"].shape[0]
+    check(all(np.array_equal(got[f][:c], base[f])
+              for f in ("src", "dst", "weight", "alive"))
+          and not got["alive"][c:].any(), f"{what}: the gathered slab differs")
+
+
+MP_LAYOUTS = (("p2_e2", (2, 2)), ("p1_e4", (1, 4)))
+MP_RANK_TIMEOUT_S = 300.0
+
+
+def _mp_launch(tag, world, backend, layouts, state, cfg):
+    """Start ``world`` ranks of this script (``--mp-spec``), joined by a
+    file rendezvous under OUT: ``(procs, spec dir)``."""
+    d = OUT / f"mp_{tag}"
+    if d.exists():
+        for f in d.iterdir():
+            f.unlink()
+    d.mkdir(parents=True, exist_ok=True)
+    spec = dict(world=world, backend=backend, device=DEVICE,
+                init=f"file://{d / 'rendezvous'}", out=str(d), cfg=cfg,
+                layouts=layouts, nodes=state.get("nodes"))
+    (d / "spec.json").write_text(json.dumps(spec))
+    procs = []
+    for r in range(world):
+        with open(d / f"rank{r}.log", "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mp-spec",
+                 str(d / "spec.json"), "--mp-rank", str(r)],
+                cwd=str(ROOT), stdout=fh, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONUNBUFFERED="1")))
+    return procs, d
+
+
+def _mp_wait(what, procs, d, t0, expect_rc=0):
+    """Every rank's exit within MP_RANK_TIMEOUT_S of ``t0``, each with
+    ``expect_rc``; a rank that times out is killed with the others and
+    fails the phase, naming it."""
+    bad = []
+    for r, p in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(1.0, MP_RANK_TIMEOUT_S -
+                                    (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            bad.append(f"rank {r} timed out after {MP_RANK_TIMEOUT_S:.0f}s")
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+            continue
+        if rc != expect_rc:
+            bad.append(f"rank {r} exited {rc}")
+    if bad:
+        tails = "\n".join(f"--- rank {r}: " + (d / f"rank{r}.log")
+                          .read_text()[-2000:] for r in range(len(procs)))
+        raise PhaseError(f"{what}: {'; '.join(bad)}\n{tails}")
+
+
+def _mp_load(d, name, rank):
+    """A rank's result, read and then deleted (a slab a rank: they would
+    overflow chiprun_out/)."""
+    import numpy as np
+
+    path = d / f"{name}_r{rank}.npz"
+    with np.load(path) as z:
+        out = dict(z)
+    path.unlink()
+    out["history"] = json.loads(bytes(out["history"]).decode())
+    out["shapes"] = {(int(r), int(w)): int(c) for r, w, c in out["shapes"]}
+    return out
+
+
+def phase_multiprocess(state):
+    """lfr100k through ``run_consensus(mesh=)`` run SPMD by 4 rank
+    processes on this one card over ``gloo``, each owning one cell, in
+    layouts (p=2, e=2) and (p=1, e=4), with phase mesh's settings: every
+    rank's result bitwise equal to phase mesh's unsharded run (run here
+    when mesh did not run); each rank's wall, peak memory and launches;
+    every detecting rank must launch row_totals; the launched shapes
+    checked and timed.  Two ranks asking for NCCL on one card must be
+    refused naming it; with two or more cards, one rank per card over
+    NCCL runs (p=1, e=count) as well."""
+    import torch
+
+    edges, truth, _, _ = cell_inputs("lfr100k", state)
+    n = int(truth.shape[0])
+    cfg = dict(n_p=state.get("mesh_n_p", 8), tau=0.2, delta=0.02, seed=0,
+               max_rounds=state.get("mesh_rounds", 2),
+               closure_sampler="scatter")
+    if "mesh_unsharded" not in state:
+        res, wall, _ = _run(edges, n, DEVICE, **cfg)
+        log(f"multiprocess: the unsharded run (phase mesh did not run) "
+            f"{wall:.2f}s")
+        state["mesh_unsharded"] = _host_result(res)
+    base = state["mesh_unsharded"]
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    log("multiprocess: 4 ranks on this one card over backend='gloo', "
+        "passed explicitly: NCCL refuses two ranks on one GPU, and gloo "
+        "carries the collectives through the host; lfr100k "
+        f"N={n} E={edges.shape[0]}, louvain n_p={cfg['n_p']} "
+        f"max_rounds={cfg['max_rounds']}, scatter sampler, seed 0")
+    t0 = time.perf_counter()
+    launches = [("gloo", 4, "gloo", MP_LAYOUTS, 0)]
+    if cards >= 2:
+        launches.append(("nccl", cards, "nccl",
+                         ((f"p1_e{cards}_nccl", (1, cards)),), 0))
+    elif DEVICE == "cuda":
+        # two ranks on one card under NCCL: each must refuse by name
+        launches.append(("nccl_refused", 2, "nccl", (), 3))
+    started = [(tag, world, layouts, rc) + _mp_launch(
+                   tag, world, backend, layouts, state, cfg)
+               for tag, world, backend, layouts, rc in launches]
+    if cards < 2:
+        log("multiprocess: one rank per card over NCCL did not happen: "
+            "this machine has one card")
+    for tag, world, layouts, rc, procs, d in started:
+        _mp_wait(f"multiprocess {tag}", procs, d, t0, expect_rc=rc)
+    log(f"multiprocess: every launch ended in {time.perf_counter() - t0:.2f}s"
+        f" (rank start-up included)")
+    for tag, world, layouts, rc, procs, d in started:
+        for r in range(world):
+            for line in (d / f"rank{r}.log").read_text().splitlines():
+                if line.startswith(f"rank {r}: "):
+                    log(f"multiprocess {tag} {line}")
+    shapes_all = {}
+    total = 0
+    for tag, world, layouts, rc, procs, d in started:
+        if rc:
+            msgs = [(d / f"rank{r}.log").read_text() for r in range(world)]
+            check(all("backend 'nccl' cannot serve" in m for m in msgs),
+                  f"multiprocess {tag}: a rank was not refused by name")
+            log(f"multiprocess {tag}: both ranks refused: " + next(
+                line for line in msgs[0].splitlines()
+                if "backend 'nccl' cannot serve" in line).strip())
+            continue
+        for name, (p, e) in layouts:
+            for r in range(world):
+                got = _mp_load(d, name, r)
+                what = f"multiprocess {tag} {name} rank {r}"
+                _check_same_result(what, got, base)
+                detects = bool(len(got["local_blocks"]))
+                launched = int(got["launches"])
+                log(f"{what}: blocks {got['local_blocks'].tolist()} chunks "
+                    f"{got['local_chunks'].tolist()} "
+                    f"join={float(got['join_s']):.2f}s "
+                    f"wall={float(got['wall_s']):.2f}s per_round="
+                    f"{[round(float(x), 3) for x in got['per_round_s']]} "
+                    f"max_memory_allocated={int(got['peak'])} "
+                    f"detect_s={float(got['detect_s']):.2f} "
+                    f"collectives={int(got['coll_calls'])} in "
+                    f"{float(got['coll_s']):.2f}s "
+                    f"row_totals_launches={launched} "
+                    f"by_shape={sorted(got['shapes'].items())}")
+                if DEVICE == "cuda" and detects:
+                    check(launched > 0, f"{what} detects but never launched "
+                                        f"row_totals")
+                total += launched
+                for s, c in got["shapes"].items():
+                    shapes_all[s] = shapes_all.get(s, 0) + c
+                state.setdefault("multiprocess", {})[f"{tag}_{name}_r{r}"] = \
+                    dict(wall_s=float(got["wall_s"]),
+                         max_memory_allocated=int(got["peak"]),
+                         row_totals_launches=launched)
+    log(f"multiprocess: every rank of every layout bitwise equal to the "
+        f"unsharded run (partitions, rounds, integer stats, slab over "
+        f"{base['src'].shape[0]} slots)")
+    log(f"multiprocess: {smi_line()}")
+    if DEVICE == "cuda":
+        check(total > 0, "multiprocess never launched row_totals")
+    per_shape = check_and_time_shapes(shapes_all, seed=5)
+    state.setdefault("main_paths", {})["multiprocess"] = dict(
+        launches=total, by_shape=per_shape)
+
+
+def mp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of phase multiprocess: join the group, run each layout
+    of the spec, write its result to ``{name}_r{rank}.npz``.  A refused
+    join exits 3."""
+    global DEVICE
+    import numpy as np
+    import torch
+
+    from fastconsensus_tpu_torch import consensus, parallel
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+    from fastconsensus_tpu_torch.parallel import collectives as coll
+
+    spent = {"detect_s": 0.0, "coll_s": 0.0, "coll_calls": 0}
+    slowest = []
+
+    def timed(fn, key, calls=None):
+        """``fn`` adding its seconds to ``spent[key]`` (host clock, after a
+        sync: the collectives and the detection block on the card); with
+        ``calls``, the slowest calls' seconds and shapes kept."""
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            dt = time.perf_counter() - t
+            spent[key] += dt
+            if calls:
+                spent[calls] += 1
+                slowest.append((dt, spent[calls], list(out[0].shape),
+                                str(out[0].dtype)))
+                slowest.sort(reverse=True)
+                del slowest[4:]
+            return out
+        return call
+
+    # where a rank's wall goes: every exchange between processes passes
+    # through gather_shards, every detection through _detect_chunked
+    coll.gather_shards = timed(coll.gather_shards, "coll_s", "coll_calls")
+    consensus._detect_chunked = timed(consensus._detect_chunked, "detect_s")
+    spec = json.loads(Path(spec_path).read_text())
+    DEVICE = spec["device"]
+    t0 = time.perf_counter()
+    try:
+        parallel.initialize_multihost(spec["init"], spec["world"], rank,
+                                      backend=spec["backend"])
+    except RuntimeError as e:
+        if "backend 'nccl' cannot serve" not in str(e):
+            raise
+        print(f"rank {rank}: {e}", flush=True)
+        return 3
+    join_s = time.perf_counter() - t0
+    try:
+        edges, truth, _, _ = cell_inputs("lfr100k", {
+            "n_p": spec["cfg"]["n_p"], "max_rounds": spec["cfg"]
+            ["max_rounds"], "nodes": spec["nodes"]})
+        n = int(truth.shape[0])
+        card = torch.device("cuda", torch.cuda.current_device()) \
+            if DEVICE == "cuda" else torch.device("cpu")
+        for name, (p, e) in spec["layouts"]:
+            mesh = parallel.make_mesh(p, e, devices=[card])
+            reset_peak()
+            rk.reset_launches()
+            spent.update(detect_s=0.0, coll_s=0.0, coll_calls=0)
+            slowest.clear()
+            res, wall, per_round = _run(edges, n, DEVICE,
+                                        run_kw={"mesh": mesh}, **spec["cfg"])
+            launched = rk.LAUNCHES["row_totals"]
+            shapes = sorted(rk.ROW_TOTALS_SHAPES.items())
+            peak = read_peak()
+            host = _host_result(res)
+            host["history"] = np.frombuffer(
+                json.dumps(host["history"]).encode(), np.uint8)
+            np.savez(Path(spec["out"]) / f"{name}_r{rank}.npz", **host,
+                     wall_s=wall, per_round_s=np.asarray(per_round),
+                     join_s=join_s, peak=-1 if peak is None else peak,
+                     **spent,
+                     launches=launched,
+                     shapes=np.asarray([(r, d, c) for (r, d), c in shapes],
+                                       np.int64).reshape(-1, 3),
+                     local_blocks=np.asarray(mesh.local_blocks(), np.int64),
+                     local_chunks=np.asarray(mesh.local_chunks(), np.int64))
+            print(f"rank {rank}: {name} wall {wall:.2f}s; slowest "
+                  f"collectives (s, call, shape, dtype) "
+                  f"{[(round(t, 4), c, sh, dt) for t, c, sh, dt in slowest]}",
+                  flush=True)
+    finally:
+        parallel.shutdown_multihost()
+    return 0
 
 
 def _main_path_run(state, name):
@@ -3144,7 +3448,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "memory": phase_memory, "karate": phase_karate,
           "gpu_cpu": phase_gpu_cpu,
           "fused": phase_fused, "lfr100k": phase_lfr100k,
-          "mesh": phase_mesh,
+          "mesh": phase_mesh, "multiprocess": phase_multiprocess,
           "leiden_lfr10k": phase_leiden_lfr10k,
           "lpm_emaileu": phase_lpm_emaileu,
           "cnm_emaileu": phase_cnm_emaileu,
@@ -3169,7 +3473,12 @@ def main(argv=None) -> int:
                    choices=("lfr100k", "leiden_lfr10k", "lpm_emaileu",
                             "cnm_emaileu", "infomap_lfr10k"),
                    help="the cell phase profile runs")
+    p.add_argument("--mp-spec", help=argparse.SUPPRESS)
+    p.add_argument("--mp-rank", type=int, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.mp_spec:    # one rank of phase multiprocess, on its device
+        sys.path.insert(0, str(ROOT))
+        return mp_rank_main(args.mp_spec, args.mp_rank)
     try:
         import torch
     except ImportError as e:

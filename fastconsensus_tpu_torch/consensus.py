@@ -348,6 +348,13 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     scatter one ("auto" resolves to it, "csr" raises); no
     ``init_labels``.  Partitions, rounds and the slab are bit for bit the
     unsharded scatter run's; ``graph`` comes back gathered into one slab.
+    A mesh that spans processes (``parallel.initialize_multihost``) runs
+    SPMD: every process calls this with the same graph, config and seed,
+    holds its own chunks and blocks, takes every decision from the
+    collective-reduced stats, and returns the same result; process 0
+    writes the checkpoint (after the gather, then a barrier).  No
+    ``detect_cache_dir`` there: every process would write the same chunk
+    files.
 
     ``checkpoint_path`` persists the state every ``checkpoint_every``
     rounds and on convergence; with ``resume`` an existing checkpoint
@@ -418,6 +425,11 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
             raise ValueError(
                 f"init_labels shape {init_labels.shape} != "
                 f"{(config.n_p, slab.n_nodes)} (n_p, n_nodes)")
+    if mesh is not None and mesh.spans_processes and detect_cache_dir:
+        raise ValueError(
+            "detect_cache_dir is not supported with a mesh that spans "
+            "processes: every process would write the same chunk files; "
+            "run without detect_cache_dir, or on a one-process mesh")
     if mesh is not None and n_p % mesh.shape[ENSEMBLE_AXIS]:
         raise ValueError(
             f"n_p={n_p} is not divisible by the mesh ensemble axis "
@@ -607,21 +619,29 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
             with tracer.span("checkpoint", round=rounds):
                 # key data and, when warm, the labels are read back
                 obs_counters.host_sync("checkpoint", 2 if warm else 1)
-                ckpt.save_checkpoint(
-                    checkpoint_path, _whole(slab), rounds, prng.key_data(key),
-                    history,
-                    extra={"algorithm": config.algorithm, "n_p": n_p,
-                           "tau": config.tau, "delta": config.delta,
-                           "gamma": config.gamma,
-                           "warm_start": config.warm_start,
-                           "align_frac": config.align_frac,
-                           "closure_sampler": sampler,
-                           "closure_tau": config.closure_tau,
-                           # the port sizes member chunks from memory alone
-                           "member_seconds": None,
-                           "converged": converged},
-                    labels=gather_labels(cur_labels) if warm else None,
-                    telemetry=run_telemetry())
+                # every process gathers (collectives); process 0 writes
+                whole = _whole(slab)
+                ck_labels = gather_labels(cur_labels, mesh) if warm else None
+                if mesh is None or mesh.rank == 0:
+                    ckpt.save_checkpoint(
+                        checkpoint_path, whole, rounds, prng.key_data(key),
+                        history,
+                        extra={"algorithm": config.algorithm, "n_p": n_p,
+                               "tau": config.tau, "delta": config.delta,
+                               "gamma": config.gamma,
+                               "warm_start": config.warm_start,
+                               "align_frac": config.align_frac,
+                               "closure_sampler": sampler,
+                               "closure_tau": config.closure_tau,
+                               # the port sizes member chunks from memory alone
+                               "member_seconds": None,
+                               "converged": converged},
+                        labels=ck_labels,
+                        telemetry=run_telemetry())
+                if mesh is not None and mesh.spans_processes:
+                    import torch.distributed as dist
+
+                    dist.barrier()
         if converged:
             break
 
@@ -637,7 +657,7 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     with tracer.span("final_detect"):
         final_labels = final_detect(slab, final_keys,
                                     cur_labels if warm else None)
-        all_labels = gather_labels(final_labels).cpu().numpy().astype(
+        all_labels = gather_labels(final_labels, mesh).cpu().numpy().astype(
             np.int32)
     obs_counters.host_sync("final_labels")
     partitions = [all_labels[i] for i in range(n_p)]

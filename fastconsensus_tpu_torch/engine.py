@@ -44,7 +44,9 @@ from fastconsensus_tpu_torch.obs import quality as obs_quality
 from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.ops import consensus_ops as cops
 from fastconsensus_tpu_torch.ops.sharded_tail import sharded_consensus_tail
-from fastconsensus_tpu_torch.parallel.sharding import (Mesh, gather_labels,
+from fastconsensus_tpu_torch.parallel.sharding import (Mesh, ShardedSlab,
+                                                       gather_labels,
+                                                       gather_slab,
                                                        replicate_slab,
                                                        shard_keys,
                                                        shard_labels)
@@ -375,14 +377,17 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
     ``ensemble_sharding`` (a ``parallel.Mesh``): every call splits its
     keys (a multiple of the ensemble axis) over "p", each block detected
     on its shard's device against a replicated slab (gathered once, for
-    every chunk); the labels come back as per-shard blocks."""
+    every chunk); the labels come back as per-shard blocks.  On a mesh
+    that spans processes each process detects its own blocks and
+    gathers the slab and every finished chunk with the others."""
     n_p = keys.shape[0]
     tracer = get_tracer()
     obs_reg = obs_counters.get_registry()
     mesh = ensemble_sharding
     if mesh is not None:
+        if isinstance(slab, ShardedSlab):
+            slab = gather_slab(slab)
         reps = replicate_slab(slab, mesh)
-        slab = reps[0]
 
     def call(ks, init):
         if mesh is None:
@@ -395,7 +400,7 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
         with tracer.span("detect_dispatch", members=n_p):
             return call(keys, init_labels)
     if mesh is not None and init_labels is not None:
-        init_labels = gather_labels(init_labels)
+        init_labels = gather_labels(init_labels, mesh)
     n_calls = -(-n_p // members)
     pad = n_calls * members - n_p
     if pad:
@@ -438,7 +443,7 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
                     # fcheck: ok=sync-in-loop (the deliberate per-chunk
                     # barrier above; one sync per chunk of members)
                     torch.cuda.synchronize(block.device)
-            out = gather_labels(out).to(dev)
+            out = gather_labels(out, mesh).to(dev)
         obs_counters.host_sync("detect_chunk")
         dt = time.perf_counter() - t0
         obs_reg.inc("detect.chunks")

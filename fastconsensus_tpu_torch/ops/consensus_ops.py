@@ -18,7 +18,7 @@ the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -157,7 +157,8 @@ def scatter_argmax_shards(score, segs, label, valid, num: int):
 def partner_draw_batches(key: torch.Tensor, srcd: Sequence[torch.Tensor],
                          dstd: Sequence[torch.Tensor],
                          valid_e: Sequence[torch.Tensor], n: int,
-                         capacity: int, n_samples: int, argmax
+                         capacity: int, n_samples: int, argmax,
+                         device: Optional[torch.device] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The scatter sampler's draw engine, one definition for the unsharded
     and the edge-sharded tail (their wedges must be bit-identical; only
@@ -165,7 +166,8 @@ def partner_draw_batches(key: torch.Tensor, srcd: Sequence[torch.Tensor],
     directed entries of each edge shard (one shard: the whole slab);
     ``argmax(scores, segs, labels, valid, num) -> (best, score, has)``
     takes the shards' lists and returns the per-segment winners on the
-    first shard's device.
+    first shard's device, or on ``device`` (a process of a multi-process
+    mesh may hold no shard).
 
     Draw ``d`` uses the two keys of ``split(fold_in(key, d))``; G draws
     run as one flat scatter-argmax over (draw, node) segments, in groups
@@ -174,7 +176,7 @@ def partner_draw_batches(key: torch.Tensor, srcd: Sequence[torch.Tensor],
     a shard's).  The kept window starts at ``randint(fold_in(key, draws),
     (), 0, draws*n)`` of the unpadded grid and wraps, so neither capacity
     nor the group size changes the result."""
-    dev = srcd[0].device
+    dev = srcd[0].device if device is None else device
     key = key.to(dev)
     draws = -(-n_samples // max(n, 1))
     if draws == 0:

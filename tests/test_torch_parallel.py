@@ -404,10 +404,13 @@ def test_mesh_refusals(karate_slab):
 
 
 def test_mesh_modules_import_neither_jax_nor_the_reference():
+    """The mesh modules, and the rank worker of the multi-process tests
+    (each rank imports the port only)."""
     pkg = REPO / "fastconsensus_tpu_torch"
     paths = sorted((pkg / "parallel").glob("*.py")) + \
-        [pkg / "ops" / "sharded_tail.py"]
-    assert len(paths) == 4
+        [pkg / "ops" / "sharded_tail.py",
+         REPO / "tests" / "torch_mp_worker.py"]
+    assert len(paths) == 5
     for path in paths:
         text = path.read_text()
         assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M), path
