@@ -30,6 +30,23 @@ Phases (any failure exits non-zero without the final line):
              delta 0) on the emailEu stand-in: identical partitions and
              integer round histories
 6. fused     the opt-in fused dense sweep (FCTPU_FUSED=1) end to end
+6a. blocks   fused round blocks (engine.RoundsBlock: one round captured
+             into a CUDA graph, replayed round after round, one stats
+             readback a block) against one round a host step: lfr10k
+             (louvain, n_p 20, tau 0.2, delta 0.02, seed 0, at most 16
+             rounds: hybrid rows through row_totals), the emailEu
+             stand-in (lpm_emaileu's settings), karate (louvain, n_p 20,
+             the matmul sweep) and fused's planted 5k graph
+             (FCTPU_FUSED=1, 4 rounds: fused_move_rows in the graph),
+             each at FCTPU_ROUNDS_BLOCK=8 and =1:
+             partitions, history and slab bitwise equal, kernel launches
+             at each width equal (a block's sweep runs every member, so
+             its shapes are n_p's rows); karate's block on the card
+             against its block on the CPU (partitions, slab, integer
+             history); per run the wall, rounds, blocks, captures and
+             their seconds, host syncs by tag, the device's busy share
+             (nvidia-smi's utilization.gpu sampled every 50 ms) and the
+             peak memory allocated and reserved
 7. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
              delta=0.02, max_rounds=8, closure_tau=0.2; afterwards
@@ -209,7 +226,8 @@ Phases (any failure exits non-zero without the final line):
              --chip-max-edges auto --hbm-bytes B starting on the
              derived ceiling and draining on SIGTERM
 
-Kernel launch counters are reset just before phases 6-7, each of
+Kernel launch counters are reset just before phases 6-7, each of phase
+6a's runs, each of
 phase 8's runs and of phase 9's rank runs, phases 10-11, 14, 15 (its
 uninterrupted run), 16 (its profiled run), 17 (its incremental card
 run), 18, 19 (its part A) and 21 (its lfr10k and lfr100k parts) and read
@@ -731,6 +749,164 @@ def phase_fused(state):
     check(launches["fused_move_rows"] > 0,
           "fused path never launched fused_move_rows")
     state["launches_fused"] = launches
+
+
+def _block_cases(state):
+    """Phase blocks' four runs: (name, edges, n, algorithm, environment,
+    run settings)."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+    data = np.load(ROOT / "bench_data" / "lfr10k.npz")
+    email, email_truth, _, email_cfg = cell_inputs("lpm_emaileu", state)
+    k_edges, _, k_ids = read_edgelist(str(ROOT / "examples" /
+                                          "karate_club.txt"))
+    p_edges, _ = planted_graph(5000, 50, 0.2, 0.0005, seed=3)
+    return [
+        ("lfr10k", data["edges"], int(data["labels"].shape[0]), "louvain",
+         {}, dict(n_p=state.get("blocks_n_p", 20), tau=0.2, delta=0.02,
+                  seed=0, max_rounds=16)),
+        ("emailEu stand-in", email, int(email_truth.shape[0]), "lpm", {},
+         email_cfg),
+        ("karate", k_edges, len(k_ids), "louvain", {},
+         dict(n_p=20, tau=0.2, delta=0.02, seed=0)),
+        ("5k planted, fused", p_edges, 5000, "louvain",
+         {"FCTPU_MOVE_PATH": "dense", "FCTPU_FUSED": "1"},
+         dict(n_p=8, tau=0.2, delta=0.02, max_rounds=4, seed=2))]
+
+
+def phase_blocks(state):
+    """The fused round block (engine.RoundsBlock) against one round a
+    host step: each case at FCTPU_ROUNDS_BLOCK=8 and =1, bitwise equal
+    (partitions, history, slab) with equal kernel launches by shape;
+    karate's block also against its block on the CPU."""
+    import numpy as np
+
+    from fastconsensus_tpu_torch.obs import counters as obs_counters
+    from fastconsensus_tpu_torch.ops import row_kernels as rk
+
+    reg = obs_counters.get_registry()
+
+    def one(edges, n, alg, env, cfg, block, device=DEVICE):
+        saved = {k: os.environ.get(k) for k in
+                 list(env) + ["FCTPU_ROUNDS_BLOCK"]}
+        os.environ.update(env, FCTPU_ROUNDS_BLOCK=str(block))
+        base = reg.counters()
+        cap_n = len(reg.series("engine.setup_executables.seconds"))
+        rk.reset_launches()
+        reset_peak()
+        out = []
+        try:
+            if device == DEVICE == "cuda":
+                wall, busy, n_k = _device_utilization(
+                    lambda: out.append(_run(edges, n, device, alg, **cfg)))
+            else:
+                out.append(_run(edges, n, device, alg, **cfg))
+                wall, busy, n_k = out[0][1], None, 0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        res = out[0][0]
+        since = reg.counters_since(base)
+        syncs = {k[len("host_sync."):]: v for k, v in sorted(since.items())
+                 if k.startswith("host_sync.") and k != "host_sync.total"}
+        cap_s = reg.series("engine.setup_executables.seconds")[cap_n:]
+        import torch
+
+        return dict(res=res, wall=wall, busy=busy, kernels=n_k,
+                    peak=read_peak(), syncs=syncs,
+                    reserved=torch.cuda.max_memory_reserved()
+                    if device == DEVICE == "cuda" else None,
+                    blocks=since.get("host_sync.block_stats", 0),
+                    captures=since.get("engine.setup_executables", 0),
+                    capture_s=sum(cap_s), launches=dict(rk.LAUNCHES),
+                    shapes=dict(rk.ROW_TOTALS_SHAPES))
+
+    # the history's float fields sum in the device's order: the card
+    # and the CPU agree on the rest
+    floats = ("agreement", "modularity_mean", "modularity_by_member")
+
+    def same(a, b, exact=True) -> bool:
+        ga, gb = a.graph, b.graph
+        ha, hb = a.history, b.history
+        if not exact:
+            ha, hb = ([{k: v for k, v in h.items() if k not in floats}
+                       for h in hist] for hist in (ha, hb))
+        return (len(a.partitions) == len(b.partitions) and
+                all(np.array_equal(x, y)
+                    for x, y in zip(a.partitions, b.partitions)) and
+                ha == hb and a.rounds == b.rounds and
+                all(bool((getattr(ga, f).cpu() == getattr(gb, f).cpu()
+                          ).all()) and getattr(ga, f).shape ==
+                    getattr(gb, f).shape
+                    for f in ("src", "dst", "weight", "alive")))
+
+    t_phase = time.perf_counter()
+    for name, edges, n, alg, env, cfg in _block_cases(state):
+        t_case = time.perf_counter()
+        runs = {b: one(edges, n, alg, env, cfg, b) for b in (8, 1)}
+        for b, m in runs.items():
+            busy = "not measured (nvidia-smi gave no sample)" \
+                if m["busy"] is None else \
+                f"{m['busy']:.1%} (utilization.gpu, mean of {m['kernels']} " \
+                f"50 ms samples)"
+            peak = "n/a" if m["peak"] is None else \
+                f"{m['peak'] / 2 ** 20:.1f} MiB (reserved " \
+                f"{m['reserved'] / 2 ** 20:.1f} MiB)"
+            log(f"blocks {name} ({alg}, n_p={cfg['n_p']}, "
+                f"FCTPU_ROUNDS_BLOCK={b}): wall {m['wall']:.3f}s, "
+                f"{m['res'].rounds} rounds, {m['blocks']} blocks, "
+                f"{m['captures']} captures in {m['capture_s']:.3f}s, host "
+                f"syncs {m['syncs']}, device busy {busy}, peak {peak}, "
+                f"launches {m['launches']}, row_totals by shape "
+                f"{m['shapes']}")
+        a, b = runs[8], runs[1]
+        check(same(a["res"], b["res"]),
+              f"blocks {name}: the block-8 run differs from the block-1 "
+              f"run")
+        # a block's sweep runs every member (a stopped one keeps its
+        # labels), the eager sweep only those still moving: the same
+        # launches at each width, over all n_p members' rows
+        widths = [{d: sum(c for (_, dd), c in m["shapes"].items()
+                          if dd == d) for (_, d) in m["shapes"]}
+                  for m in (a, b)]
+        check(widths[0] == widths[1] and a["launches"] == b["launches"],
+              f"blocks {name}: launches differ: block 8 {a['launches']} "
+              f"{a['shapes']}, block 1 {b['launches']} {b['shapes']}")
+        check(a["blocks"] > 0 and a["captures"] > 0 and b["blocks"] == 0,
+              f"blocks {name}: the block-8 run ran {a['blocks']} blocks "
+              f"({a['captures']} captures), the block-1 run "
+              f"{b['blocks']}")
+        if name == "lfr10k":
+            check(a["launches"]["row_totals"] > 0,
+                  "blocks lfr10k: row_totals never launched")
+        if "fused" in name:
+            check(a["launches"]["fused_move_rows"] > 0,
+                  "blocks fused: fused_move_rows never launched")
+        if name == "karate":
+            c = one(edges, n, alg, env, cfg, 8, device="cpu")
+            check(same(a["res"], c["res"], exact=False),
+                  "blocks karate: the card's block differs from the CPU's")
+            gap = max((abs(x - y) for ha, hc in zip(a["res"].history,
+                                                     c["res"].history)
+                       for k in floats for x, y in zip(
+                           np.ravel(ha[k]), np.ravel(hc[k]))), default=0.0)
+            log(f"blocks karate: the card's block-8 run equals the CPU's "
+                f"in partitions, slab and integer history (float fields "
+                f"within {gap:.3g}; {c['blocks']} blocks, {c['wall']:.2f}s "
+                f"on the CPU)")
+        log(f"blocks {name}: equal, {time.perf_counter() - t_case:.2f}s")
+    log(f"blocks: every case bitwise equal between block 8 and block 1 in "
+        f"{time.perf_counter() - t_phase:.2f}s")
+    # the closed graphs' pools stay in the allocator's cache: hand them
+    # back before the phases that measure memory
+    import torch
+
+    torch.cuda.empty_cache()
 
 
 def cell_inputs(name: str, state):
@@ -1341,7 +1517,12 @@ def _cli_run(args, alg, timings=None):
     host_s, tail_s, results = [], [], []
 
     def timed(calls, fn):
+        import torch
+
         def wrapper(*a, **k):
+            if DEVICE == "cuda" and torch.cuda.is_current_stream_capturing():
+                # a fused block's tail being captured: no sync, no time
+                return fn(*a, **k)
             sync()
             t0 = time.perf_counter()
             out = fn(*a, **k)
@@ -1973,6 +2154,42 @@ def _device_busy(fn):
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return wall, (_busy_us(events) / 1e6 if events else None), len(events)
+
+
+def _device_utilization(fn):
+    """``fn()`` with ``nvidia-smi`` sampling the card's utilization.gpu
+    every 50 ms (the share of each of NVML's sample periods, 1/6 s
+    to 1 s, in which a kernel ran): ``(wall s, mean utilization in [0, 1]
+    or None, samples)``.  A profiler trace would give the busy share
+    exactly, but collecting the ~0.4 M kernel records of an lfr10k run
+    takes it tens of seconds."""
+    import statistics
+
+    sync()
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-i", "0", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        proc = None
+    try:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        out = ""
+        if proc is not None:
+            proc.terminate()
+            try:
+                out, _ = proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+    samples = [float(x) for x in out.split() if x.strip().isdigit()]
+    return wall, (statistics.fmean(samples) / 100 if samples else None), \
+        len(samples)
 
 
 def _busy_us(events) -> float:
@@ -3447,7 +3664,8 @@ def smi_line() -> str:
 PHASES = {"build": phase_build, "kernels": phase_kernels,
           "memory": phase_memory, "karate": phase_karate,
           "gpu_cpu": phase_gpu_cpu,
-          "fused": phase_fused, "lfr100k": phase_lfr100k,
+          "fused": phase_fused, "blocks": phase_blocks,
+          "lfr100k": phase_lfr100k,
           "mesh": phase_mesh, "multiprocess": phase_multiprocess,
           "leiden_lfr10k": phase_leiden_lfr10k,
           "lpm_emaileu": phase_lpm_emaileu,

@@ -8,9 +8,12 @@ budgets when they starve (policy.budgets_stale), auto-growth of the slab
 with a deterministic replay of the saturating round, both wedge samplers,
 and checkpoint/resume in the reference's file format
 (``utils/checkpoint.py``), and fcdelta's incremental re-consensus from a
-parent run's partitions (``init_labels`` / ``active_mask``).  Rounds run
-one at a time; the reference's fused round blocks are documented
-bit-identical to that.  :func:`run_consensus_batch` runs B same-bucket
+parent run's partitions (``init_labels`` / ``active_mask``).  Where the
+reference fuses rounds (one call a round, no checkpoint, no mesh, and
+here no detect cache) Louvain's and LPM's rounds run in fused blocks
+(``engine.RoundsBlock``: a captured CUDA graph on the card, one stats
+readback a block), bit for bit one round a host step.
+:func:`run_consensus_batch` runs B same-bucket
 graphs as one member-batched detection stream, each job's result its
 solo run's.  With ``detect_cache_dir`` every round's detection and the
 final re-detection run in driver chunks persisted as they finish, so a
@@ -35,13 +38,14 @@ import numpy as np
 import torch
 
 from fastconsensus_tpu_torch import policy, sizing
-from fastconsensus_tpu_torch.engine import (RoundStats, _detect_chunked,
+from fastconsensus_tpu_torch.engine import (BLOCK_MAX, RoundsBlock,
+                                            RoundStats, _detect_chunked,
                                             consensus_batch_round,
                                             consensus_round, detect_stacked,
                                             stats_to_host)
-from fastconsensus_tpu_torch.graph import (GraphSlab, check_stackable,
-                                           grow_slab, pack_edges,
-                                           stack_slabs)
+from fastconsensus_tpu_torch.graph import (GraphSlab, _statics,
+                                           check_stackable, grow_slab,
+                                           pack_edges, stack_slabs)
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs.tracer import get_tracer
@@ -326,6 +330,26 @@ def _cache_fingerprint(config: ConsensusConfig, slab: GraphSlab,
     ).encode()).hexdigest()[:10]
 
 
+def rounds_block_size(dev: torch.device) -> Optional[int]:
+    """The fused block size of a run on ``dev``, from FCTPU_ROUNDS_BLOCK:
+    an integer is clamped to 1..BLOCK_MAX; unset is 1, one round a host
+    step; ``auto`` is None on the card, where the run's first round runs
+    alone and sizes the blocks by the reference's rule,
+    ``min(8, 15 s / that round)`` (the reference's prior,
+    est_member_seconds, is not ported), and 1 elsewhere (off the card a
+    block computes both sides of every branch and every sweep of the
+    budget, and saves no launches).
+
+    Unset is not the reference's default: on the card a capture costs
+    0.4-1.7 s and every budget re-derivation or growth captures again,
+    so a block was slower than one round a step on every main-path run
+    but karate's (PERF.md)."""
+    raw = os.environ.get("FCTPU_ROUNDS_BLOCK", "").strip()
+    if raw.lower() == "auto":
+        return None if dev.type == "cuda" else 1
+    return max(1, min(BLOCK_MAX, env_int("FCTPU_ROUNDS_BLOCK", 1)))
+
+
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   key: Optional[torch.Tensor] = None,
                   checkpoint_path: Optional[str] = None,
@@ -552,98 +576,195 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     if detect_cache_dir:
         setup_cache()
 
-    r = start_round
-    while r < end_round:
-        t_iter = time.perf_counter()
-        regrow_budgets()
-        pre_slab = slab
-        k = prng.stream(key, prng.STREAM_ROUND, r)
-        mode = job.mode(r)
-        is_cold = mode != "warm"
-        round_detect = {"cold": detect, "refresh": detect_refresh,
-                        "warm": detect_warm}[mode]
-        if detect_cache_dir or mesh is not None:
-            round_detect = chunked(round_detect, f"r{r}")
-        with tracer.step_span("round", r, mode=mode):
-            if warm:
-                slab_new, new_labels, stats = consensus_round(
-                    slab, k, round_detect, n_p, config.tau, config.delta,
-                    n_closure, init_labels=sing if is_cold else cur_labels,
-                    align=job.align(r) and not is_cold,
-                    closure_tau=config.closure_tau, prev_labels=cur_labels,
-                    sampler=sampler, active=active, ensemble_sharding=mesh)
+    def grow_and_replay(pre_slab, dropped: int) -> None:
+        """Grow from the state the saturating round started from; the
+        caller runs the round again: same key, same slot-fill order, so
+        only the dropped survivors change."""
+        nonlocal slab
+        with tracer.span("grow_and_replay", dropped=dropped):
+            obs_reg.inc("slab.regrow_events")
+            new_cap = pre_slab.capacity + max(2 * dropped,
+                                              pre_slab.capacity // 2)
+            _logger.warning(
+                "edge slab saturated (%d survivors dropped); growing "
+                "capacity %d -> %d and replaying the round", dropped,
+                pre_slab.capacity, new_cap)
+            if mesh is not None:
+                slab = shard_slab(grow_slab(gather_slab(pre_slab), new_cap),
+                                  mesh)
             else:
-                slab_new, new_labels, stats = consensus_round(
-                    slab, k, round_detect, n_p, config.tau, config.delta,
-                    n_closure, closure_tau=config.closure_tau,
-                    prev_labels=prev_round_labels, sampler=sampler,
-                    ensemble_sharding=mesh)
-            stats = stats_to_host([stats])[0]
-        obs_counters.host_sync("round_stats")
-        dropped = int(stats.n_dropped)
-        if config.auto_grow and dropped > 0:
-            # grow from the pre-round state and replay the round: same key,
-            # same slot-fill order, so only the dropped survivors change
-            with tracer.span("grow_and_replay", dropped=dropped):
-                obs_reg.inc("slab.regrow_events")
-                new_cap = pre_slab.capacity + max(2 * dropped,
-                                                  pre_slab.capacity // 2)
-                _logger.warning(
-                    "edge slab saturated (%d survivors dropped); growing "
-                    "capacity %d -> %d and replaying the round", dropped,
-                    pre_slab.capacity, new_cap)
-                if mesh is not None:
-                    slab = shard_slab(grow_slab(gather_slab(pre_slab),
-                                                new_cap), mesh)
-                else:
-                    slab = grow_slab(pre_slab, new_cap)
-            continue
-        slab = slab_new
-        if warm:
-            cur_labels = new_labels
-        prev_round_labels = new_labels
-        r += 1
+                slab = grow_slab(pre_slab, new_cap)
+
+    def record(stats: RoundStats, cold: bool) -> bool:
+        """Append one round's host stats to the history; returns
+        converged."""
+        nonlocal rounds
         rounds += 1
         entry = _history_entry(stats, rounds, slab.capacity, slab.n_nodes,
-                               is_cold)
+                               cold)
         job.observe(entry)
         obs_counters.fold_round(entry)
         if on_round is not None:
             on_round(entry)
-        obs_reg.observe("round.seconds", time.perf_counter() - t_iter)
-        converged = bool(stats.converged)
-        if checkpoint_path is not None and \
-                (rounds % checkpoint_every == 0 or converged):
-            from fastconsensus_tpu_torch.utils import checkpoint as ckpt
+        return bool(stats.converged)
 
-            with tracer.span("checkpoint", round=rounds):
-                # key data and, when warm, the labels are read back
-                obs_counters.host_sync("checkpoint", 2 if warm else 1)
-                # every process gathers (collectives); process 0 writes
-                whole = _whole(slab)
-                ck_labels = gather_labels(cur_labels, mesh) if warm else None
-                if mesh is None or mesh.rank == 0:
-                    ckpt.save_checkpoint(
-                        checkpoint_path, whole, rounds, prng.key_data(key),
-                        history,
-                        extra={"algorithm": config.algorithm, "n_p": n_p,
-                               "tau": config.tau, "delta": config.delta,
-                               "gamma": config.gamma,
-                               "warm_start": config.warm_start,
-                               "align_frac": config.align_frac,
-                               "closure_sampler": sampler,
-                               "closure_tau": config.closure_tau,
-                               # the port sizes member chunks from memory alone
-                               "member_seconds": None,
-                               "converged": converged},
-                        labels=ck_labels,
-                        telemetry=run_telemetry())
-                if mesh is not None and mesh.spans_processes:
-                    import torch.distributed as dist
+    def save_checkpoint() -> None:
+        from fastconsensus_tpu_torch.utils import checkpoint as ckpt
 
-                    dist.barrier()
-        if converged:
-            break
+        with tracer.span("checkpoint", round=rounds):
+            # key data and, when warm, the labels are read back
+            obs_counters.host_sync("checkpoint", 2 if warm else 1)
+            # every process gathers (collectives); process 0 writes
+            whole = _whole(slab)
+            ck_labels = gather_labels(cur_labels, mesh) if warm else None
+            if mesh is None or mesh.rank == 0:
+                ckpt.save_checkpoint(
+                    checkpoint_path, whole, rounds, prng.key_data(key),
+                    history,
+                    extra={"algorithm": config.algorithm, "n_p": n_p,
+                           "tau": config.tau, "delta": config.delta,
+                           "gamma": config.gamma,
+                           "warm_start": config.warm_start,
+                           "align_frac": config.align_frac,
+                           "closure_sampler": sampler,
+                           "closure_tau": config.closure_tau,
+                           # the port sizes member chunks from memory alone
+                           "member_seconds": None,
+                           "converged": converged},
+                    labels=ck_labels,
+                    telemetry=run_telemetry())
+            if mesh is not None and mesh.spans_processes:
+                import torch.distributed as dist
+
+                dist.barrier()
+
+    # Fused mode (the reference's): where a whole round is one call of
+    # a blocked detector (Louvain, LPM) and nothing is persisted per
+    # round, rounds run in blocks of up to BLOCK_MAX with one stats
+    # readback a block (engine.RoundsBlock; a CUDA graph on the card).
+    # Under warm start the blocks run warm rounds; a round that
+    # re-detects from singletons (the first, a stagnation refresh) runs
+    # on its own.  Block size never changes results; rounds_block_size
+    # says how it is chosen.
+    block_size = rounds_block_size(dev)
+    runner: Optional[RoundsBlock] = None
+
+    def fused(mode: str) -> int:
+        """This step's block size (1: one round, eagerly)."""
+        if block_size is None or block_size < 2 or checkpoint_path or \
+                detect_cache_dir or mesh is not None or \
+                not getattr(detect, "supports_block", False) or \
+                (warm and mode != "warm"):
+            return 1
+        if sizing.members_per_call(
+                slab, n_p, getattr(detect, "member_bytes", None)) < n_p:
+            return 1
+        return block_size
+
+    r = start_round
+    alone = False   # the last block stopped before its first round
+    try:
+        while r < end_round:
+            t_iter = time.perf_counter()
+            regrow_budgets()
+            mode = job.mode(r)
+            fb = 1 if alone else fused(mode)
+            alone = False
+            if fb >= 2:
+                if runner is None or _statics(runner.slab) != _statics(slab):
+                    if runner is not None:
+                        runner.close()
+                    runner = RoundsBlock(
+                        slab, detect_warm if warm else detect, n_p,
+                        config.tau, config.delta, n_closure, warm,
+                        config.align_frac if job.align_ok else 0.0,
+                        sampler, config.closure_tau, active)
+                noop = job.budget_noop if job.budget_noop is not None \
+                    else (-1, -1, -1)
+                t0 = time.perf_counter()
+                with tracer.step_span("rounds_block", r, block=fb):
+                    res = runner.run(
+                        slab, key, cur_labels if warm else prev_round_labels,
+                        r, min(fb, end_round - r), job.align(r),
+                        job.pstate, config.auto_grow, noop,
+                        cold_start_round)
+                obs_counters.host_sync("block_stats")
+                dt = time.perf_counter() - t0
+                slab = res.slab
+                if warm:
+                    cur_labels = res.labels
+                prev_round_labels = res.labels
+                for st in res.stats[:res.done]:
+                    converged = record(st, bool(st.cold))
+                r += res.done
+                if res.done:
+                    # per-round samples are the block's average; the
+                    # block's own wall goes to its series
+                    obs_reg.observe("rounds_block.seconds", dt)
+                    per_round = (time.perf_counter() - t_iter) / res.done
+                    for _ in range(res.done):
+                        obs_reg.observe("round.seconds", per_round)
+                if res.grow:
+                    grow_and_replay(slab,
+                                    int(res.stats[res.done].n_dropped))
+                elif res.done == 0:
+                    # the block stopped before its first round, one that
+                    # re-detects from singletons: it runs on its own
+                    alone = True
+                if converged:
+                    break
+                continue
+            pre_slab = slab
+            k = prng.stream(key, prng.STREAM_ROUND, r)
+            is_cold = mode != "warm"
+            round_detect = {"cold": detect, "refresh": detect_refresh,
+                            "warm": detect_warm}[mode]
+            if detect_cache_dir or mesh is not None:
+                round_detect = chunked(round_detect, f"r{r}")
+            with tracer.step_span("round", r, mode=mode):
+                if warm:
+                    slab_new, new_labels, stats = consensus_round(
+                        slab, k, round_detect, n_p, config.tau,
+                        config.delta, n_closure,
+                        init_labels=sing if is_cold else cur_labels,
+                        align=job.align(r) and not is_cold,
+                        closure_tau=config.closure_tau,
+                        prev_labels=cur_labels, sampler=sampler,
+                        active=active, ensemble_sharding=mesh)
+                else:
+                    slab_new, new_labels, stats = consensus_round(
+                        slab, k, round_detect, n_p, config.tau,
+                        config.delta, n_closure,
+                        closure_tau=config.closure_tau,
+                        prev_labels=prev_round_labels, sampler=sampler,
+                        ensemble_sharding=mesh)
+                stats = stats_to_host([stats])[0]
+            obs_counters.host_sync("round_stats")
+            dropped = int(stats.n_dropped)
+            if config.auto_grow and dropped > 0:
+                grow_and_replay(pre_slab, dropped)
+                continue
+            slab = slab_new
+            if warm:
+                cur_labels = new_labels
+            prev_round_labels = new_labels
+            r += 1
+            converged = record(stats, is_cold)
+            round_s = time.perf_counter() - t_iter
+            obs_reg.observe("round.seconds", round_s)
+            if block_size is None:
+                # the first round timed sizes the blocks (the reference's
+                # prior, est_member_seconds, is not ported)
+                block_size = max(1, min(BLOCK_MAX, int(15.0 / max(round_s,
+                                                                  1e-9))))
+            if checkpoint_path is not None and \
+                    (rounds % checkpoint_every == 0 or converged):
+                save_checkpoint()
+            if converged:
+                break
+    finally:
+        if runner is not None:
+            runner.close()
 
     regrow_budgets()
     final_keys = prng.partition_keys(

@@ -21,13 +21,16 @@ over the mesh's ensemble axis, each block detected on its own device,
 and the round's tail runs edge-locally over the sharded slab
 (``ops/sharded_tail.py``).
 
-Not ported: the fused solo round block ``consensus_rounds_block``
-(documented bit-identical to per-round execution, so it has no result of
-its own; what it saves is launches and readbacks, CUDA-graph work).
+:class:`RoundsBlock` (with :func:`consensus_rounds_block`) is the fused
+solo round block: up to ``BLOCK_MAX`` rounds with one stats readback,
+each round run through its capture-safe variants (``ops/capture.py``)
+and, on the card, replayed from one captured CUDA graph.  It computes
+exactly what one round a host step computes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -36,13 +39,16 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fastconsensus_tpu_torch import policy
 from fastconsensus_tpu_torch.graph import (GraphSlab, agg_compaction_active,
                                            stack_slabs, unstack_slab)
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.obs import counters as obs_counters
 from fastconsensus_tpu_torch.obs import quality as obs_quality
 from fastconsensus_tpu_torch.obs.tracer import get_tracer
+from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.ops import consensus_ops as cops
+from fastconsensus_tpu_torch.ops import row_kernels
 from fastconsensus_tpu_torch.ops.sharded_tail import sharded_consensus_tail
 from fastconsensus_tpu_torch.parallel.sharding import (Mesh, ShardedSlab,
                                                        gather_labels,
@@ -95,7 +101,8 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
     slab = cops.threshold_weights(slab, tau, n_p)
     st_mid = cops.convergence_stats(slab, n_p, delta)
     n_closed = n_repaired = n_dropped = zero
-    if not bool(st_mid.converged):
+
+    def closure(slab):
         n0 = slab.num_alive()
         if sampler == "csr":
             cu, cv, cvalid = cops.sample_wedges(
@@ -112,8 +119,24 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
         su, sv, sw, svalid = cops.singleton_candidates(slab, prev)
         slab, dropped2 = cops.insert_edges_hash(slab, su, sv, sw, svalid,
                                                 unique_new=True)
-        n_closed, n_repaired = n1 - n0, slab.num_alive() - n1
-        n_dropped = dropped + dropped2
+        return slab, n1 - n0, slab.num_alive() - n1, dropped + dropped2
+
+    if capture.active():
+        # the reference's lax.cond: closure and repair only on an
+        # unconverged round, decided on the device
+        outs = [slab.src.clone(), slab.dst.clone(), slab.weight.clone(),
+                slab.alive.clone(), zero.clone(), zero.clone(), zero.clone()]
+
+        def run():
+            s, *ns = closure(slab)
+            return [s.src, s.dst, s.weight, s.alive, *ns]
+
+        capture.when(~st_mid.converged, run, outs)
+        slab = dataclasses.replace(slab, src=outs[0], dst=outs[1],
+                                   weight=outs[2], alive=outs[3])
+        n_closed, n_repaired, n_dropped = outs[4:]
+    elif not bool(st_mid.converged):
+        slab, n_closed, n_repaired, n_dropped = closure(slab)
     st_end = cops.convergence_stats(slab, n_p, delta)
     n_overflow = n_hub_overflow = n_agg_overflow = zero
     if slab.d_cap > 0:
@@ -133,7 +156,7 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
         n_closure_added=n_closed, n_repaired=n_repaired,
         n_dropped=n_dropped, n_overflow=n_overflow,
         n_hub_overflow=n_hub_overflow, n_agg_overflow=n_agg_overflow,
-        cold=torch.tensor(False, device=dev),
+        cold=torch.zeros((), dtype=torch.bool, device=dev),
         n_w_zero=qual.n_w_zero, n_w_full=qual.n_w_full,
         n_frontier=qual.n_frontier, labels_changed=qual.labels_changed,
         member_modularity=qual.member_modularity, agreement=qual.agreement)
@@ -218,8 +241,13 @@ def tail_temp_bytes(slab: GraphSlab, n_p: int, n_closure: int) -> int:
     return int(max(phases))
 
 
-def _maybe_align_keys(keys: torch.Tensor, align: bool) -> torch.Tensor:
-    """Give every ensemble member member 0's key when ``align`` is true."""
+def _maybe_align_keys(keys: torch.Tensor, align) -> torch.Tensor:
+    """Give every ensemble member member 0's key when ``align`` (a bool,
+    or a bool scalar on the device: the fused block's) is true."""
+    if isinstance(align, torch.Tensor):
+        # fcheck: ok=key-reuse (a select between the aligned and the
+        # member keys: each member draws from exactly one of them)
+        return torch.where(align, keys[:1].expand_as(keys), keys)
     if not align:
         return keys
     return keys[:1].expand_as(keys).clone()
@@ -351,6 +379,314 @@ def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
             at += n
         out.append(RoundStats(*fields))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fused round block
+# ---------------------------------------------------------------------------
+
+# Rounds one block runs at most (the reference's cap on its block size).
+BLOCK_MAX = 8
+
+
+def _stats_like(n_p: int, device, lead=()) -> RoundStats:
+    """Zeroed RoundStats of one round (``lead`` = ()) or a stack of them."""
+    def z(dtype, *shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    i64, f32, b = torch.int64, torch.float32, torch.bool
+    return RoundStats(
+        converged=z(b), n_alive=z(i64), n_unconverged=z(i64),
+        n_closure_added=z(i64), n_repaired=z(i64), n_dropped=z(i64),
+        n_overflow=z(i64), n_hub_overflow=z(i64), n_agg_overflow=z(i64),
+        cold=z(b), n_w_zero=z(i64), n_w_full=z(i64), n_frontier=z(i64),
+        labels_changed=z(i64, n_p), member_modularity=z(f32, n_p),
+        agreement=z(f32))
+
+
+class _DeviceXP:
+    """``policy``'s array module over scalars on the device, so that its
+    rules run inside the block with no host read: numbers become fills on
+    the device, never copies from the host."""
+
+    float32 = torch.float32
+    int32 = torch.int32
+
+    def __init__(self, device):
+        self.device = device
+
+    def asarray(self, x, dtype=None):
+        if isinstance(x, torch.Tensor):
+            return x if dtype is None else x.to(dtype)
+        if dtype is None:
+            dtype = torch.bool if isinstance(x, bool) else \
+                torch.int32 if isinstance(x, int) else torch.float32
+        return torch.full((), x, dtype=dtype, device=self.device)
+
+    def maximum(self, a, b):
+        return torch.maximum(self.asarray(a), self.asarray(b))
+
+    def where(self, c, a, b):
+        return torch.where(c, self.asarray(a), self.asarray(b))
+
+
+class BlockResult(NamedTuple):
+    """What one fused block hands back to ``run_consensus``."""
+
+    slab: GraphSlab           # the slab after the ``done`` rounds
+    labels: torch.Tensor      # the labels after them [n_p, N]
+    done: int                 # rounds completed (and to be recorded)
+    stats: List[RoundStats]   # host stats of those rounds, then, when
+                              # ``grow``, of the round that dropped
+    grow: bool                # a round dropped survivors under auto-grow:
+                              # it is not counted and did not change state
+
+
+class RoundsBlock:
+    """The fused round block of one run configuration and slab sizing:
+    the reference's ``consensus_rounds_block`` and its executable.  Up to
+    ``BLOCK_MAX`` rounds a call, with one readback of their stats.
+
+    Every round of the block is :func:`consensus_round` with ``detect``
+    through the capture-safe variants (``ops/capture.py``), its key
+    derived from ``(key, start_round + i)``.  With warm start
+    (``detect`` the warm variant) each round decides its mode on the
+    device from the carried ``policy.PolicyState`` (``policy.stalled`` /
+    ``stale`` / ``observe`` / ``align_now``, the host loop's own
+    rules), so a block computes exactly what one round a host step
+    computes.  The block stops after the round that converged, after a
+    round whose budgets starve where the host would re-derive them
+    (``watch``: auto-grow; ``noop``: the overflow levels of the last
+    re-derivation that changed nothing), before counting a round that
+    dropped survivors under auto-grow (that round changes nothing;
+    ``run_consensus`` grows the slab it started from and runs it again,
+    as it does one round a step), and before a round that re-detects from
+    singletons (the run's cold start or a stagnation refresh), which
+    ``run_consensus`` runs on its own: a captured round holds one
+    detector's sweeps, the warm variant's 12, not the cold one's 32
+    besides.
+
+    On the card the first :meth:`run` captures one guarded round into a
+    CUDA graph and each call replays it once per round; a replay after
+    the stop changes nothing (its round sits in an IF node on ``go``).
+    Elsewhere the same round runs eagerly, its branches computed and
+    selected.  Capacity and the static budgets are part of the captured
+    shapes: ``run_consensus`` makes a new block when they change."""
+
+    def __init__(self, slab: GraphSlab, detect: Detector, n_p: int,
+                 tau: float, delta: float, n_closure: int, warm: bool,
+                 align_frac: float = 0.0, sampler: str = "csr",
+                 closure_tau: Optional[float] = None,
+                 active: Optional[torch.Tensor] = None):
+        dev = slab.device
+        self.device = dev
+        self.detect = detect
+        self.n_p, self.tau, self.delta = n_p, tau, delta
+        self.n_closure, self.warm = n_closure, warm
+        self.align_frac, self.sampler = align_frac, sampler
+        self.closure_tau = closure_tau
+        n, cap = slab.n_nodes, slab.capacity
+
+        def z(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.src, self.dst = z(torch.int64, cap), z(torch.int64, cap)
+        self.weight, self.alive = z(torch.float32, cap), z(torch.bool, cap)
+        self.slab = dataclasses.replace(slab, src=self.src, dst=self.dst,
+                                        weight=self.weight, alive=self.alive)
+        self.labels = z(torch.int64, n_p, n)
+        self.active = None if active is None else active.to(dev).clone()
+        self.key = z(torch.int64, 2)
+        self.start_round, self.max_iters = z(torch.int64), z(torch.int64)
+        self.cold_round = z(torch.int64)
+        self.watch, self.noop = z(torch.bool), z(torch.int64, 3)
+        self.i = z(torch.int64)
+        self.conv, self.need = z(torch.bool), z(torch.bool)
+        self.grow, self.stop = z(torch.bool), z(torch.bool)
+        self.aligned = z(torch.bool)
+        self.pst = [z(torch.int32) for _ in policy.INITIAL]
+        self.buf = _stats_like(n_p, dev, (BLOCK_MAX,))
+        self.tmp = _stats_like(n_p, dev)
+        self.step = None
+
+    # -- the guarded round --------------------------------------------
+
+    def _round(self) -> List[torch.Tensor]:
+        """One round from the carry: the new carry and the round's
+        stats, in the order :meth:`_step` lists them."""
+        dev = self.device
+        xp = _DeviceXP(dev)
+        r = self.start_round + self.i
+        k = prng.stream(self.key, prng.STREAM_ROUND, r)
+        pst = policy.PolicyState(*self.pst)
+        state = [self.src, self.dst, self.weight, self.alive, self.labels]
+
+        def run(init=None, align=False):
+            s, lab, st = consensus_round(
+                self.slab, k, self.detect, self.n_p, self.tau, self.delta,
+                self.n_closure, init_labels=init, align=align,
+                closure_tau=self.closure_tau, prev_labels=self.labels,
+                sampler=self.sampler, active=self.active)
+            return [s.src, s.dst, s.weight, s.alive, lab, *st]
+
+        if self.warm:
+            # the host loop's rules for the round's mode: a round that
+            # re-detects from singletons (the run's first, or a
+            # stagnation refresh) ends the block before it runs, and
+            # run_consensus runs it on its own
+            cold = (r == self.cold_round) | \
+                policy.stale(xp, self.delta, pst) | \
+                policy.stalled(xp, self.delta, pst, self.aligned)
+            outs = [t.clone() for t in state + list(self.tmp)]
+            capture.when(~cold, lambda: run(self.labels, self.aligned),
+                         outs)
+            stop = cold
+        else:
+            outs = run()
+            cold = torch.ones((), dtype=torch.bool, device=dev)
+            stop = torch.zeros((), dtype=torch.bool, device=dev)
+        st = RoundStats(*outs[5:])._replace(cold=cold)
+        # a round that dropped survivors under auto-grow does not count
+        drop = self.watch & (st.n_dropped > 0) & ~stop
+        keep = ~drop & ~stop
+        pst_new = policy.observe(xp, pst, cold,
+                                 st.n_unconverged.to(torch.int32),
+                                 st.n_alive.to(torch.int32))
+        if self.warm and self.align_frac > 0:
+            aligned = policy.align_now(xp, self.align_frac, pst_new)
+        else:
+            aligned = torch.zeros((), dtype=torch.bool, device=dev)
+        s = self.slab
+        need = policy.budgets_stale(
+            xp, st.n_overflow, st.n_hub_overflow, s.d_cap, s.hub_cap,
+            s.n_nodes, st.n_alive, s.agg_cap) & self.watch & (
+            (st.n_overflow > self.noop[0]) |
+            (st.n_hub_overflow > self.noop[1]) |
+            (st.n_alive > self.noop[2]))
+        return ([torch.where(keep, new, old)
+                 for new, old in zip(outs[:5], state)] +
+                [self.i + keep.to(torch.int64), keep & st.converged,
+                 keep & need, drop, stop,
+                 torch.where(keep, aligned, self.aligned)]
+                + [torch.where(keep, v.to(torch.int32), o)
+                   for v, o in zip(pst_new, self.pst)] + list(st))
+
+    def _step(self) -> None:
+        """One guarded round: runs where the block has not stopped
+        (``go``), and writes the round's stats into row ``i``."""
+        i0 = self.i.clone()
+        go = ~self.conv & ~self.need & ~self.grow & ~self.stop & \
+            (self.i < self.max_iters)
+        carry = [self.src, self.dst, self.weight, self.alive, self.labels,
+                 self.i, self.conv, self.need, self.grow, self.stop,
+                 self.aligned, *self.pst]
+        capture.when(go, self._round, carry + list(self.tmp))
+        for b, t in zip(self.buf, self.tmp):
+            b.index_copy_(0, i0.reshape(1), t.unsqueeze(0))
+
+    # -- a block --------------------------------------------------------
+
+    def run(self, slab: GraphSlab, key: torch.Tensor, labels0: torch.Tensor,
+            start_round: int, n_rounds: int, align0: bool, pstate0,
+            watch0: bool, noop0, cold_round: int) -> BlockResult:
+        """Up to ``n_rounds`` (at most ``BLOCK_MAX``) rounds from ``slab``
+        and ``labels0`` (the previous round's labels, or the singletons),
+        with one readback.  ``cold_round`` is the run's round that starts
+        from singletons (-1: none, an fcdelta or resumed run)."""
+        if not 1 <= n_rounds <= BLOCK_MAX:
+            raise ValueError(f"a block runs 1..{BLOCK_MAX} rounds, not "
+                             f"{n_rounds}")
+        for dst, src in ((self.src, slab.src), (self.dst, slab.dst),
+                         (self.weight, slab.weight),
+                         (self.alive, slab.alive), (self.labels, labels0),
+                         (self.key, key)):
+            dst.copy_(src)
+        for t, v in ((self.start_round, start_round),
+                     (self.max_iters, n_rounds), (self.i, 0),
+                     (self.cold_round, cold_round), (self.conv, False),
+                     (self.need, False), (self.grow, False),
+                     (self.stop, False),
+                     (self.aligned, bool(align0)), (self.watch, bool(watch0))):
+            t.fill_(v)
+        for t, v in zip(self.pst, pstate0):
+            t.fill_(int(v))
+        for j, v in enumerate(noop0):
+            self.noop[j].fill_(int(v))
+        on_card = self.device.type == "cuda"
+        if on_card:
+            if self.step is None:
+                self._capture()
+            for _ in range(n_rounds):
+                self.step.replay()
+        else:
+            with capture.capture_safe():
+                for _ in range(n_rounds):
+                    self._step()
+        # the block's one readback: rounds done, the grow flag, every
+        # round's stats and (on the card) the replayed kernel launches
+        parts = [self.i.reshape(1), self.grow.reshape(1),
+                 *(b.reshape(-1) for b in self.buf)]
+        if on_card:
+            parts.append(row_kernels.device_counts(self.device))
+        # fcheck: ok=f64-dtype (one host copy of every stats field: float64
+        # holds each int count and float32 value exactly)
+        flat = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
+        done, grow = int(flat[0]), bool(flat[1])
+        at, fields = 2, []
+        for b in self.buf:
+            fields.append(flat[at:at + b.numel()].reshape(b.shape))
+            at += b.numel()
+        if on_card:
+            row_kernels.fold_device_counts(self.device, flat[at:])
+        rows = [RoundStats(*(f[j] for f in fields))
+                for j in range(done + int(grow))]
+        out = dataclasses.replace(self.slab, src=self.src.clone(),
+                                  dst=self.dst.clone(),
+                                  weight=self.weight.clone(),
+                                  alive=self.alive.clone())
+        return BlockResult(out, self.labels.clone(), done, rows, grow)
+
+    def _capture(self) -> None:
+        """Capture the guarded round (the counterpart of the reference's
+        ``setup_executables`` re-jit): span- and counter-wrapped."""
+        obs_reg = obs_counters.get_registry()
+        t0 = time.perf_counter()
+        with get_tracer().span("setup_executables"):
+            self.step = capture.CapturedStep(self._step, self.device)
+        obs_reg.inc("engine.setup_executables")
+        obs_reg.observe("engine.setup_executables.seconds",
+                        time.perf_counter() - t0)
+
+    def close(self) -> None:
+        """Free the captured graph and its pools."""
+        if self.step is not None:
+            self.step.close()
+            self.step = None
+
+
+def consensus_rounds_block(slab: GraphSlab, key: torch.Tensor,
+                           labels0: torch.Tensor, start_round: int,
+                           max_iters: int, align0: bool, pstate0,
+                           watch0: bool, noop0, cold_round: int,
+                           detect: Detector, n_p: int, tau: float,
+                           delta: float, n_closure: int, block: int,
+                           warm: bool, align_frac: float = 0.0,
+                           sampler: str = "csr",
+                           closure_tau: Optional[float] = None,
+                           active: Optional[torch.Tensor] = None
+                           ) -> BlockResult:
+    """Up to ``min(block, max_iters)`` rounds in one block (see
+    :class:`RoundsBlock`, which ``run_consensus`` keeps across blocks so
+    that the card captures once per slab sizing).  ``detect`` is the
+    detector of the block's rounds: the warm variant with ``warm``."""
+    runner = RoundsBlock(slab, detect, n_p, tau, delta, n_closure, warm,
+                         align_frac, sampler, closure_tau, active)
+    try:
+        return runner.run(slab, key, labels0, start_round,
+                          min(block, max_iters), align0, pstate0, watch0,
+                          noop0, cold_round)
+    finally:
+        runner.close()
 
 
 def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,

@@ -62,7 +62,9 @@ class GraphSlab:
     @property
     def batch(self) -> torch.Size:
         """Leading member dimensions: ``()`` for one shared slab."""
-        return torch.broadcast_shapes(
+        from fastconsensus_tpu_torch.utils.shapes import broadcast_shape
+
+        return broadcast_shape(
             *(t.shape[:-1] for t in (self.src, self.dst, self.weight,
                                      self.alive)))
 

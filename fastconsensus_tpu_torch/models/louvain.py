@@ -44,11 +44,13 @@ import torch
 from fastconsensus_tpu_torch.analysis import footprint
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
+from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.ops import dense_adj as da
 from fastconsensus_tpu_torch.ops import row_kernels
 from fastconsensus_tpu_torch.ops import segment as seg
 from fastconsensus_tpu_torch.utils import prng
 from fastconsensus_tpu_torch.utils.env import env_int
+from fastconsensus_tpu_torch.utils.shapes import broadcast_shape
 
 # Jitter and move margin relative to the gain quantum 1/(2m) (see the
 # reference for the measurements behind both).
@@ -93,7 +95,7 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Concatenate along the last axis, broadcasting the member axes."""
-    lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    lead = broadcast_shape(a.shape[:-1], b.shape[:-1])
     return torch.cat([a.expand(lead + a.shape[-1:]),
                       b.expand(lead + b.shape[-1:])], dim=-1)
 
@@ -121,9 +123,13 @@ def _dense_weights(slab: GraphSlab) -> torch.Tensor:
         -1, t.shape[-1]) for t in (srcd, dstd, wd, ok))
     b = ok.shape[0]
     member = torch.arange(b, device=slab.device)[:, None]
-    w = torch.zeros(b * n * n, dtype=torch.float32, device=slab.device)
-    return w.index_add_(0, ((member * n + srcd) * n + dstd)[ok],
-                        wd[ok]).view(b, n, n)
+    # dead slots add 0 into a spill cell past the matrices: no boolean
+    # mask, so no host read (ops/capture.py)
+    w = torch.zeros(b * n * n + 1, dtype=torch.float32, device=slab.device)
+    at = torch.where(ok, (member * n + srcd) * n + dstd, b * n * n)
+    return w.index_add_(0, at.reshape(-1),
+                        torch.where(ok, wd, 0.0).reshape(-1)
+                        )[:b * n * n].view(b, n, n)
 
 
 def _in_weights(W: torch.Tensor, own: torch.Tensor,
@@ -585,9 +591,10 @@ class Prepared:
             self.W = _dense_weights(slab)
         elif self.path == "dense":
             self.adj = da.build_dense_adjacency(slab)
-            over = self.adj.n_overflow > 0
-            if bool(over.any()):
-                self.coin_rows = self.adj.valid.all(dim=-1) & over[..., None]
+            # always a tensor, all false without overflow (None's moves):
+            # no host read
+            self.coin_rows = self.adj.valid.all(dim=-1) & \
+                (self.adj.n_overflow > 0)[..., None]
             # the fused kernel has no refinement scoring
             if os.environ.get("FCTPU_FUSED", "") == "1" and \
                     _fused_width_ok(slab.d_cap) and theta == 0.0:
@@ -595,9 +602,8 @@ class Prepared:
                                         self.m2, gamma)
         elif self.path == "hybrid":
             self.hyb = da.build_hybrid(slab)
-            over = self.hyb.n_hub_overflow > 0
-            if bool(over.any()):
-                self.coin_rows = self.hyb.is_hub & over[..., None]
+            self.coin_rows = self.hyb.is_hub & \
+                (self.hyb.n_hub_overflow > 0)[..., None]
             self.n_buckets = seg.hash_buckets_for(slab.hub_cap + n)
         elif self.path == "hash":
             self.n_buckets = seg.hash_buckets_for(2 * _cap_hint(slab) + n)
@@ -686,6 +692,35 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
     stop_at = max(1, int(stop_frac * n))
     endgame_at = max(1, int(0.05 * n))
     n_want = torch.full((m,), n, dtype=torch.int64, device=dev)
+
+    def sweep(it, lab, p, ks):
+        """One sweep of members ``ks``: ``(new_labels, n_want)``."""
+        sub = prng.split(prng.fold_in(ks, it), 3)
+        best, want = p.step(lab, sub[:, 0])
+        if singleton_only:
+            return _refine_moves(lab, best, want, sub[:, 2], n)
+        nw = want.sum(dim=1)
+        bern = prng.bernoulli(sub[:, 2], update_prob, (n,))
+        swap = _swap_break(sub[:, 1], p.slab, want, p.adj, p.hyb,
+                           p.coin_rows)
+        mask = torch.where((nw <= endgame_at)[:, None], swap, bern)
+        return torch.where(want & mask, best, lab), nw
+
+    if capture.active():
+        # every member sweeps and keeps its labels once it has stopped:
+        # a member's sweep reads only its own key and rows, so this is
+        # the subset loop below bit for bit, with no host read; a sweep
+        # with no member left runs only off the card's graphs
+        for it in range(max_sweeps):
+            act = n_want >= stop_at
+
+            def run(it=it, act=act):
+                new, nw = sweep(it, labels, prep, keys)
+                return (torch.where(act[:, None], new, labels),
+                        torch.where(act, nw, n_want))
+
+            capture.when(act.any(), run, (labels, n_want))
+        return labels
     for it in range(max_sweeps):
         # fcheck: ok=sync-in-loop (the sweep loop's exit test: one
         # deliberate sync a sweep, which also sizes the next sweep's rows)
@@ -695,17 +730,7 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
         every = act.numel() == m
         lab = labels if every else labels[act]
         p = prep if every else prep.take(act)
-        sub = prng.split(prng.fold_in(keys if every else keys[act], it), 3)
-        best, want = p.step(lab, sub[:, 0])
-        if singleton_only:
-            new, nw = _refine_moves(lab, best, want, sub[:, 2], n)
-        else:
-            nw = want.sum(dim=1)
-            bern = prng.bernoulli(sub[:, 2], update_prob, (n,))
-            swap = _swap_break(sub[:, 1], p.slab, want, p.adj, p.hyb,
-                               p.coin_rows)
-            mask = torch.where((nw <= endgame_at)[:, None], swap, bern)
-            new = torch.where(want & mask, best, lab)
+        new, nw = sweep(it, lab, p, keys if every else keys[act])
         if every:
             labels, n_want = new, nw
         else:
@@ -815,6 +840,9 @@ def make_louvain(max_sweeps: Optional[int] = None, update_prob: float = 0.5,
     # tie-break jitter is content-keyed (_community_reps), so endgame key
     # sharing collapses degenerate disagreements
     det.supports_align = True
+    # its rounds run capture-safe in the fused round block
+    # (engine.RoundsBlock)
+    det.supports_block = True
     return det
 
 

@@ -24,6 +24,7 @@ import torch
 
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
+from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.ops import dense_adj as da
 from fastconsensus_tpu_torch.ops import segment as seg
 from fastconsensus_tpu_torch.utils import prng
@@ -113,6 +114,20 @@ def lpm_members(prep: Prepared, keys: torch.Tensor,
     else:
         labels = init_labels.to(device=dev, dtype=torch.int64).clone()
     n_want = torch.ones(m, dtype=torch.int64, device=dev)
+    if capture.active():
+        # every member votes and keeps its labels once it has stopped
+        # (as louvain.local_move's capture-safe loop): no host read
+        for it in range(max_iters):
+            act = n_want > 0
+
+            def run(it=it, act=act):
+                new, nw = prep.step(labels, prng.fold_in(keys, it),
+                                    update_prob)
+                return (torch.where(act[:, None], new, labels),
+                        torch.where(act, nw, n_want))
+
+            capture.when(act.any(), run, (labels, n_want))
+        return seg.compact_labels(labels, n)
     for it in range(max_iters):
         # fcheck: ok=sync-in-loop (the iteration loop's exit test: one
         # deliberate sync an iteration, which also sizes the next one)
@@ -151,10 +166,14 @@ def member_bytes(slab: GraphSlab) -> int:
 
 
 def make_lpm(max_iters: int = 64, update_prob: float = 0.7) -> Detector:
-    return ensemble(
+    det = ensemble(
         lambda prep, keys, init: lpm_members(prep, keys, init, max_iters,
                                              update_prob),
         Prepared, member_bytes)
+    # its rounds run capture-safe in the fused round block
+    # (engine.RoundsBlock)
+    det.supports_block = True
+    return det
 
 
 lpm = make_lpm()

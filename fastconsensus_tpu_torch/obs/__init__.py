@@ -3,14 +3,19 @@
 
 * **obs/tracer.py** — nested host-side spans (wall + CPU time,
   thread-safe, a shared no-op when disabled).  ``run_consensus`` opens
-  ``round`` (a step span), ``detect``, ``tail``, ``grow_and_replay``,
-  ``checkpoint`` and ``final_detect``; the chunked detection
+  ``round`` and ``rounds_block`` (step spans, a block's keyed by its
+  first round), ``setup_executables`` (a block's CUDA-graph capture),
+  ``detect``, ``tail``, ``grow_and_replay``, ``checkpoint`` and
+  ``final_detect``; the chunked detection
   ``detect_dispatch`` / ``detect_chunk``; ``run_consensus_batch``
   ``batch_block`` / ``batch_final_detect``.
 * **obs/counters.py** — always-on counter/gauge/series registry: round
-  stats folded per round, deliberate host syncs (``round_stats``,
-  ``final_labels``, ``checkpoint``, ``budget_histogram``,
-  ``detect_chunk``), detect-chunk counts and latency, device memory from
+  stats folded per round, deliberate host syncs (``round_stats``, a
+  fused block's ``block_stats``, ``final_labels``, ``checkpoint``,
+  ``budget_histogram``, ``detect_chunk``), ``round.seconds`` (a block's
+  rounds each observe the block's average) and ``rounds_block.seconds``,
+  the captures (``engine.setup_executables`` and its ``.seconds``),
+  detect-chunk counts and latency, device memory from
   ``torch.cuda.memory_stats``.
 * **obs/device.py** — ``torch.profiler`` sessions, ``record_function``
   annotations and the merge of the profiler's Chrome trace into the
@@ -22,14 +27,12 @@
   histograms and post-mortem bundles.
 * **obs/quality.py** — the device half of fcqual, computed in the tail.
 
-Counters the reference takes from XLA have no counterpart here and are
-not recorded: ``engine.setup_executables``, the compile guard's
-``xla.compiles*``, the ``rounds_block`` spans and series and the fused
-block's readback ``host_sync.block_stats``.  Eager PyTorch builds no
-executables, and the port runs one round per host step (its readback is
-``host_sync.round_stats``).  The serving tier's build counters
-(``serve.xla_compiles`` and its kin) count the port's ``nvcc``/``g++``
-builds instead (``analysis/recompile_guard.py``).
+The compile guard's ``xla.compiles*`` have no counterpart here: eager
+PyTorch compiles nothing.  ``engine.setup_executables`` counts the fused
+block's CUDA-graph captures, the port's counterpart of the reference's
+re-jit.  The serving tier's build counters (``serve.xla_compiles`` and
+its kin) count the port's ``nvcc``/``g++`` builds instead
+(``analysis/recompile_guard.py``).
 
 Continuity: checkpoints carry the counter snapshot
 (``utils/checkpoint.py``'s ``telemetry``), restored by delta on resume,

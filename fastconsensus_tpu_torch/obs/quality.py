@@ -44,8 +44,12 @@ def frontier_mask(slab: GraphSlab, n_p: int) -> torch.Tensor:
     """bool[n_nodes]: vertices incident to >= 1 alive mid-band edge."""
     n = slab.n_nodes
     mid = slab.alive & (slab.weight > 0) & (slab.weight < float(n_p))
-    hits = torch.bincount(torch.cat([slab.src[mid], slab.dst[mid]]),
-                          minlength=n)
+    ends = torch.where(mid, torch.stack([slab.src, slab.dst]), n)
+    # a scatter into n + 1 counts (the last the spill of the other
+    # edges): no host read, unlike a boolean mask or bincount
+    hits = torch.zeros(n + 1, dtype=torch.int64, device=slab.device
+                       ).scatter_add_(0, ends.reshape(-1),
+                                      torch.ones_like(ends).reshape(-1))
     return hits[:n] > 0
 
 
@@ -63,7 +67,7 @@ def edge_agreement(counts: torch.Tensor, alive: torch.Tensor, n_p: int
                    ) -> torch.Tensor:
     """float32[]: mean pairwise co-membership agreement over alive edges."""
     if n_p <= 1:
-        return torch.tensor(1.0, device=counts.device)
+        return torch.ones((), device=counts.device)
     c = counts
     f = float(n_p)
     pair_agree = c * (c - 1.0) + (f - c) * (f - c - 1.0)

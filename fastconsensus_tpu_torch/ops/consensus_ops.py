@@ -82,7 +82,7 @@ def convergence_stats(slab: GraphSlab, n_p: int, delta: float
     n_mid = mid.sum()
     n_alive = slab.alive.sum()
     converged = n_mid.to(torch.float32) <= \
-        torch.tensor(_f32(delta), device=slab.device) * \
+        torch.full((), _f32(delta), device=slab.device) * \
         n_alive.to(torch.float32)
     return ConvergenceStats(converged, n_mid, n_alive)
 
@@ -258,6 +258,23 @@ def write_slots(slab: GraphSlab, slot: torch.Tensor, u: torch.Tensor,
                                alive=alive)
 
 
+def write_slots_at(slab: GraphSlab, at: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor, w: torch.Tensor) -> GraphSlab:
+    """:func:`write_slots` with static shapes: candidate ``k`` is written
+    at slot ``at[k]``, or nowhere when ``at[k]`` is the capacity (a spill
+    slot past the slab; the real slots named are distinct)."""
+    cap = slab.capacity
+
+    def put(t, vals):
+        ext = torch.cat([t, t.new_zeros((1,))])
+        return ext.scatter_(0, at, vals.to(t.dtype))[:cap]
+
+    return dataclasses.replace(
+        slab, src=put(slab.src, u), dst=put(slab.dst, v),
+        weight=put(slab.weight, w),
+        alive=put(slab.alive, torch.ones_like(at, dtype=torch.bool)))
+
+
 def insert_edges_hash(slab: GraphSlab, cand_u: torch.Tensor,
                       cand_v: torch.Tensor, cand_w: torch.Tensor,
                       cand_valid: torch.Tensor, unique_new: bool = False
@@ -280,12 +297,57 @@ def insert_edges_hash(slab: GraphSlab, cand_u: torch.Tensor,
             slab.src, slab.dst, torch.ones(cap, device=dev), slab.alive,
             seg.hash_buckets_for(_cap_hint(slab)))
         surv = candidate_survivors(tables, cu, cv, cand_valid)
-    free_slots = torch.nonzero(~slab.alive).flatten()  # in slot order
+    # the r-th survivor goes to the r-th free slot (slot order), ranked by
+    # a cumsum over the dead slots; the rest through a spill slot past the
+    # slab: static shapes, no host read
     rank = torch.cumsum(surv.to(torch.int64), dim=0) - 1
-    ok = surv & (rank < free_slots.shape[0])
-    slab = write_slots(slab, free_slots[rank[ok]], cu[ok], cv[ok],
-                       cand_w[ok])
-    return slab, surv.sum() - ok.sum()
+    free = ~slab.alive
+    free_rank = torch.cumsum(free.to(torch.int64), dim=0) - 1
+    slot_of = torch.full((cap + 1,), cap, dtype=torch.int64, device=dev)
+    slot_of.scatter_(0, torch.where(free, free_rank, cap),
+                     torch.arange(cap, device=dev))
+    ok = surv & (rank < free.sum())
+    at = torch.where(ok, slot_of[rank.clamp(0, cap)], cap)
+    return write_slots_at(slab, at, cu, cv, cand_w), surv.sum() - ok.sum()
+
+
+def insert_edges(slab: GraphSlab, cand_u: torch.Tensor,
+                 cand_v: torch.Tensor, cand_w: torch.Tensor,
+                 cand_valid: torch.Tensor) -> Tuple[GraphSlab, torch.Tensor]:
+    """The reference's exact (lexsort) insert: a candidate is dropped when
+    its ``(u, v)`` is alive in the slab or appeared earlier among the
+    candidates; survivors fill dead slots in slot order.  Returns the new
+    slab and the number of survivors dropped for capacity.  Static shapes
+    throughout (three stable sorts stand in for the lexsort)."""
+    cap = slab.capacity
+    k = cand_u.shape[0]
+    n = slab.n_nodes
+    dev = slab.device
+    all_u = torch.cat([torch.where(slab.alive, slab.src, n),
+                       torch.where(cand_valid, cand_u.to(torch.int64), n)])
+    all_v = torch.cat([torch.where(slab.alive, slab.dst, n),
+                       torch.where(cand_valid, cand_v.to(torch.int64), n)])
+    tag = torch.cat([torch.zeros(cap, dtype=torch.int64, device=dev),
+                     torch.arange(1, k + 1, dtype=torch.int64, device=dev)])
+    # lexsort by (u, v, tag): stable sorts from the last key to the first
+    order = torch.argsort(tag, stable=True)
+    order = order[torch.argsort(all_v[order], stable=True)]
+    order = order[torch.argsort(all_u[order], stable=True)]
+    su, sv, st = all_u[order], all_v[order], tag[order]
+    dup_prev = torch.zeros_like(su, dtype=torch.bool)
+    dup_prev[1:] = (su[1:] == su[:-1]) & (sv[1:] == sv[:-1])
+    surviving = ~dup_prev & (st > 0) & (su < n)
+    # back to candidate order through the unique tags 1..k (the slab's
+    # entries, tag 0, land in slot 0, sliced off)
+    surv = torch.zeros(k + 1, dtype=torch.bool, device=dev).scatter_(
+        0, st, surviving)[1:]
+    free_slots = torch.argsort(slab.alive.to(torch.int8), stable=True)
+    rank = torch.cumsum(surv.to(torch.int64), dim=0) - 1
+    ok = surv & (rank < (~slab.alive).sum())
+    at = torch.where(ok, free_slots[rank.clamp(0, cap - 1)], cap)
+    return write_slots_at(slab, at, cand_u.to(torch.int64),
+                          cand_v.to(torch.int64), cand_w), \
+        surv.sum() - ok.sum()
 
 
 def singleton_candidates(slab: GraphSlab, prev: GraphSlab

@@ -65,17 +65,22 @@ def build_dense_adjacency(slab: GraphSlab, width: int = 0,
         torch.gather(offsets, 1, ssrc.clamp(0, n - 1))
     ok = (ssrc < n) & (pos < d)
     member = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
-    flat = ((member * n + ssrc) * d + pos)[ok]
-    nbr = torch.zeros(b * n * d, dtype=torch.int64, device=dev)
-    w = torch.zeros(b * n * d, dtype=torch.float32, device=dev)
-    valid = torch.zeros(b * n * d, dtype=torch.bool, device=dev)
-    nbr[flat] = torch.gather(dstd, 1, order)[ok]
-    w[flat] = torch.gather(wd, 1, order)[ok]
-    valid[flat] = True
+    # entries that take no slot go to a spill slot past the rows: no
+    # boolean mask, so no host read (ops/capture.py); each real slot is
+    # written once
+    size = b * n * d
+    flat = torch.where(ok, (member * n + ssrc) * d + pos, size).reshape(-1)
+    nbr = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+    w = torch.zeros(size + 1, dtype=torch.float32, device=dev)
+    valid = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+    nbr.scatter_(0, flat, torch.gather(dstd, 1, order).reshape(-1))
+    w.scatter_(0, flat, torch.gather(wd, 1, order).reshape(-1))
+    valid.scatter_(0, flat, ok.reshape(-1))
     n_overflow = ((ssrc < n) & ~ok).sum(dim=1)
     rows = batch + (n, d)
-    return DenseAdj(nbr=nbr.view(rows), w=w.view(rows),
-                    valid=valid.view(rows), n_overflow=n_overflow.view(batch))
+    return DenseAdj(nbr=nbr[:size].view(rows), w=w[:size].view(rows),
+                    valid=valid[:size].view(rows),
+                    n_overflow=n_overflow.view(batch))
 
 
 class HybridAdj(NamedTuple):

@@ -22,12 +22,21 @@ one to ``LAUNCHES[name]`` where it launches its kernel and nowhere else;
 ``row_totals`` also counts its launches by shape, ``(rows, D)``, in
 ``ROW_TOTALS_SHAPES``.
 
+Under CUDA-graph capture (the fused round block, ``ops/capture.py``) a
+wrapper's call launches nothing: its launches happen at each replay.  The
+wrapper then records, beside the launch, a one-element add into its
+``(name, shape)`` slot of a device counter (:func:`device_counts`), and
+the block's one readback folds the slots into ``LAUNCHES`` and
+``ROW_TOTALS_SHAPES`` (:func:`fold_device_counts`), so the counts stay
+those of the launches made.
+
 Build: each source compiles with its own ``nvcc`` process (all started
 together) into ``fastconsensus_tpu_torch/_build/`` at first use, keyed by
 the content hash of the source, every header under ``csrc/`` and the
 flags, and loads with ctypes: a plain C entry point
 that launches on the current stream of the tensors' device and returns
-``cudaGetLastError()``.
+``cudaGetLastError()``.  ``csrc/graph_cond.cu`` (the capture's
+conditional nodes) builds beside the kernels.
 """
 
 from __future__ import annotations
@@ -56,11 +65,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"row_totals": "row_totals.cu",
            "fused_move_rows": "fused_move_rows.cu"}
+# Built and loaded like the kernels; no launch counts (ops/capture.py).
+CONTROL_SOURCES = {"graph_cond": "graph_cond.cu"}
+_ALL_SOURCES = {**SOURCES, **CONTROL_SOURCES}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 ROW_TOTALS_SHAPES: Counter = Counter()
+
+# Launches recorded into a CUDA graph: a slot of a per-device int64
+# counter for each (kernel, shape), assigned at capture.
+MAX_DEVICE_SLOTS = 256
+_DEVICE_SLOTS: Dict[Tuple[str, Tuple[int, int]], int] = {}
+_device_counts: Dict[torch.device, torch.Tensor] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -95,7 +113,7 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     """Build path keyed by the source, every ``*.cuh`` under ``csrc/`` (a
     source may include any of them) and the flags."""
-    h = hashlib.sha1((CSRC / SOURCES[name]).read_bytes())
+    h = hashlib.sha1((CSRC / _ALL_SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -103,11 +121,12 @@ def _lib_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the kernels' sources that are not built yet, one ``nvcc``
-    per source, all running at once.  Returns ``{name: {"seconds": s,
-    "cached": bool, "ptxas": text}}``; raises if any build fails.  Each
-    source it compiles counts one build (``analysis.CompileGuard``)."""
-    names = list(SOURCES if names is None else names)
+    """Compile the sources (default: the kernels' and ``graph_cond``'s)
+    that are not built yet, one ``nvcc`` per source, all running at once.
+    Returns ``{name: {"seconds": s, "cached": bool, "ptxas": text}}``;
+    raises if any build fails.  Each source it compiles counts one build
+    (``analysis.CompileGuard``)."""
+    names = list(_ALL_SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: Dict[str, dict] = {}
@@ -119,7 +138,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+               str(CSRC / _ALL_SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)
@@ -151,6 +170,17 @@ def _load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
+        if name == "graph_cond":
+            lib.graph_cond_if_begin.argtypes = [ctypes.c_void_p] * 3
+            lib.graph_cond_if_begin.restype = ctypes.c_int
+            lib.graph_cond_if_end.argtypes = [ctypes.c_void_p]
+            lib.graph_cond_if_end.restype = ctypes.c_int
+            lib.graph_cond_status.argtypes = [ctypes.c_void_p]
+            lib.graph_cond_status.restype = ctypes.c_int
+            lib.graph_cond_stream_create.argtypes = []
+            lib.graph_cond_stream_create.restype = ctypes.c_void_p
+            _libs[name] = lib
+            return lib
         fn = getattr(lib, f"{name}_launch")
         fn.restype = ctypes.c_int
         if name == "row_totals":
@@ -178,6 +208,59 @@ def _check_cuda(name: str, specs) -> None:
                              f"tensor of rank {ndim}, got {t.dtype} "
                              f"{tuple(t.shape)} contiguous="
                              f"{t.is_contiguous()}")
+
+
+def _indexed(device: torch.device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def device_counts(device: torch.device) -> torch.Tensor:
+    """The device's launch counter, int64[MAX_DEVICE_SLOTS] (made on first
+    use, which must come before a capture: ``ops/capture.py`` asks)."""
+    device = _indexed(device)
+    counts = _device_counts.get(device)
+    if counts is None:
+        counts = torch.zeros(MAX_DEVICE_SLOTS, dtype=torch.int64,
+                             device=device)
+        _device_counts[device] = counts
+    return counts
+
+
+def fold_device_counts(device: torch.device, values) -> None:
+    """Add the replayed launches ``values`` (the device counter read back,
+    one int per slot) to ``LAUNCHES`` and ``ROW_TOTALS_SHAPES``, and zero
+    the device counter."""
+    for (name, shape), slot in list(_DEVICE_SLOTS.items()):
+        v = int(values[slot])
+        if v:
+            LAUNCHES[name] += v
+            if name == "row_totals":
+                ROW_TOTALS_SHAPES[shape] += v
+    _device_counts[_indexed(device)].zero_()
+
+
+def _count_launch(name: str, shape: Tuple[int, int],
+                  device: torch.device) -> None:
+    """One launch of ``name`` at ``shape``: on the host counts, or, under
+    graph capture, as a captured add into its device slot."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
+        if name == "row_totals":
+            ROW_TOTALS_SHAPES[shape] += 1
+        return
+    counts = _device_counts.get(device)
+    if counts is None:
+        raise RuntimeError(f"{name}: a launch under graph capture needs the "
+                           f"device's launch counter (ops.capture makes it)")
+    with _lock:
+        slot = _DEVICE_SLOTS.setdefault((name, shape), len(_DEVICE_SLOTS))
+    if slot >= MAX_DEVICE_SLOTS:
+        raise RuntimeError(f"more than {MAX_DEVICE_SLOTS} (kernel, shape) "
+                           f"launch slots under graph capture")
+    counts[slot].add_(1)
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -237,8 +320,7 @@ def row_totals_cuda(lab: torch.Tensor, w: torch.Tensor
     # tensors' (a mesh shard's device need not be the current one)
     with torch.cuda.device(lab.device):
         stream = torch.cuda.current_stream(lab.device).cuda_stream
-        LAUNCHES["row_totals"] += 1
-        ROW_TOTALS_SHAPES[(r, d)] += 1
+        _count_launch("row_totals", (r, d), lab.device)
         _raise_on("row_totals", fn(lab.data_ptr(), w.data_ptr(),
                                    total.data_ptr(), head.data_ptr(), r, d,
                                    stream))
@@ -318,7 +400,7 @@ def fused_move_rows_cuda(lab, w, sig, scal, d_self: int
     want = torch.empty((r,), dtype=torch.bool, device=lab.device)
     with torch.cuda.device(lab.device):   # see row_totals_cuda
         stream = torch.cuda.current_stream(lab.device).cuda_stream
-        LAUNCHES["fused_move_rows"] += 1
+        _count_launch("fused_move_rows", (r, d), lab.device)
         _raise_on("fused_move_rows", fn(
             lab.data_ptr(), w.data_ptr(), sig.data_ptr(), scal.data_ptr(),
             best.data_ptr(), want.data_ptr(), r, d, int(d_self), stream))

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from fastconsensus_tpu_torch.utils import prng
+from fastconsensus_tpu_torch.utils.shapes import broadcast_shape
 
 NEG_INF = float("-inf")
 INT32_MIN = -2 ** 31
@@ -40,7 +41,7 @@ def _flat_scatter(buf_shape, index, src, reduce=None, fill=0, dtype=None):
 
 
 def _batch_shape(*ts) -> torch.Size:
-    return torch.broadcast_shapes(*(t.shape for t in ts))[:-1]
+    return broadcast_shape(*(t.shape for t in ts))[:-1]
 
 
 def gather_last(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -126,7 +127,7 @@ def build_hash_totals(node, label, value, valid, n_buckets: int) -> HashTables:
                                       n_buckets), n_buckets)
     h2 = torch.where(valid, _hash_mix(node, label, 0x27D4EB2F, 0x165667B1,
                                       n_buckets), n_buckets)
-    shape = (*torch.broadcast_shapes(h1.shape, w.shape)[:-1], n_buckets)
+    shape = (*broadcast_shape(h1.shape, w.shape)[:-1], n_buckets)
     return HashTables(t1=_flat_scatter(shape, h1, w),
                       t2=_flat_scatter(shape, h2, w), n_buckets=n_buckets)
 

@@ -137,8 +137,10 @@ class ServeConfig:
     # its member chunks stay on the FCTPU_ENSEMBLE_BUDGET_MB memory
     # budget (sizing.members_per_call), which bounds a batch's memory,
     # and chunking does not change partitions.  The reference's other
-    # pin, FCTPU_ROUNDS_BLOCK, has no counterpart (the port runs one
-    # round per host step) and is not set.
+    # pin, FCTPU_ROUNDS_BLOCK=8, is not set: the port's block size does
+    # not depend on the host's speed unless FCTPU_ROUNDS_BLOCK=auto asks
+    # (consensus.rounds_block_size), and on the card a block's graph
+    # captures cost served jobs more than the blocks save.
     pin_sizing: bool = True
     # Where drain() writes the server's own fcobs artifacts
     # (fcserve_trace.json + .jsonl); None = no server-side tracing.

@@ -97,7 +97,12 @@ def _words(k: torch.Tensor, extra_dims: int):
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """Mix ``data`` (an int, or an int tensor broadcastable against the key
     batch) into ``k``."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
+    if isinstance(data, (int, np.integer)):
+        # a fill, not a host-to-device copy: capture-safe (ops/capture.py)
+        d = torch.full((), int(data) & M32, dtype=torch.int64,
+                       device=k.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 

@@ -1,0 +1,369 @@
+"""The fused round block (``engine.RoundsBlock``) on the CPU: the port's
+block against the port's one round a host step, and each capture-safe
+piece against its eager twin (``test_torch_blocks_jax.py`` holds the
+block against the JAX package's).
+
+A block runs its rounds through the capture-safe variants
+(``ops/capture.py``): static shapes, no host read, device-side branches
+computed and selected.  Everything here is exact: partitions, every
+history field, the final slab.  Inputs are built with numpy from fixed
+seeds.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fastconsensus_tpu.utils.synth import planted_partition
+from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                               rounds_block_size,
+                                               run_consensus)
+from fastconsensus_tpu_torch.engine import consensus_round
+from fastconsensus_tpu_torch.graph import pack_edges
+from fastconsensus_tpu_torch.models import louvain, lpm
+from fastconsensus_tpu_torch.models.registry import get_detector
+from fastconsensus_tpu_torch.obs import counters as tcounters
+from fastconsensus_tpu_torch.ops import capture
+from fastconsensus_tpu_torch.utils import prng
+from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+# The port's CPU ops are many and small: one thread runs them fastest,
+# and parallel test workers then do not oversubscribe the cores.
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+KARATE = REPO / "examples" / "karate_club.txt"
+
+
+def _karate():
+    edges, _, ids = read_edgelist(str(KARATE))
+    return np.asarray(edges), len(ids)
+
+
+def _blocks_run(reg):
+    return reg.counters().get("host_sync.block_stats", 0)
+
+
+def _port(monkeypatch, block, slab, alg, cfg, **kw):
+    """The port's run at FCTPU_ROUNDS_BLOCK=block and the blocks it ran."""
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", str(block))
+    reg = tcounters.get_registry()
+    before = _blocks_run(reg)
+    res = run_consensus(slab, get_detector(alg), ConsensusConfig(
+        algorithm=alg, **cfg), **kw)
+    return res, _blocks_run(reg) - before
+
+
+def _assert_identical(a, b):
+    """Partitions, every history field and the final slab, exactly."""
+    assert a.rounds == b.rounds and a.converged == b.converged
+    assert a.history == b.history
+    np.testing.assert_array_equal(np.stack(a.partitions),
+                                  np.stack(b.partitions))
+    for f in ("src", "dst", "weight", "alive"):
+        assert torch.equal(getattr(a.graph, f), getattr(b.graph, f)), f
+    assert a.graph.capacity == b.graph.capacity
+    assert (a.graph.d_cap, a.graph.d_hyb, a.graph.hub_cap,
+            a.graph.agg_cap) == (b.graph.d_cap, b.graph.d_hyb,
+                                 b.graph.hub_cap, b.graph.agg_cap)
+
+
+# -- the port's block against its one round a host step -----------------
+
+
+def test_block_matches_per_round_lpm(monkeypatch):
+    """The reference's test_fused_rounds_match_single_rounds, on its graph
+    with more edges between the blocks (p_out 0.06): at its 0.02 the run
+    converges in its first round, which the port runs alone."""
+    edges, _ = planted_partition(120, 4, 0.4, 0.06, seed=9)
+    cfg = dict(n_p=6, tau=0.5, delta=0.02, max_rounds=5, seed=3)
+    slab = pack_edges(edges, 120, device="cpu")
+    fused, blocks = _port(monkeypatch, 8, slab, "lpm", cfg)
+    single, none = _port(monkeypatch, 1, slab, "lpm", cfg)
+    assert blocks > 0 and none == 0
+    _assert_identical(fused, single)
+
+
+def test_block_matches_per_round_aligned(monkeypatch):
+    """The reference's test_fused_rounds_match_single_rounds_aligned: the
+    block re-derives endgame alignment from its own stats."""
+    edges, _ = planted_partition(150, 5, 0.4, 0.02, seed=9)
+    cfg = dict(n_p=8, tau=0.2, delta=0.0, max_rounds=6, seed=3,
+               align_frac=0.5)
+    slab = pack_edges(edges, 150, device="cpu")
+    fused, blocks = _port(monkeypatch, 8, slab, "louvain", cfg)
+    assert blocks > 0
+    assert any(h["n_unconverged"] <= 0.5 * h["n_alive"]
+               for h in fused.history[:-1]), "alignment never engaged"
+    single, _ = _port(monkeypatch, 1, slab, "louvain", cfg)
+    _assert_identical(fused, single)
+
+
+def test_block_budget_regrowth_matches_per_round(monkeypatch):
+    """The reference's test_budget_regrowth_fused_matches_single: the
+    block stops at the starved round, so the dense budget is re-derived
+    at the same round."""
+    edges, _ = planted_partition(200, 4, 0.3, 0.02, seed=2)
+    slab = pack_edges(edges, 200, device="cpu")
+    starved = dataclasses.replace(slab, d_cap=8, d_hyb=0, hub_cap=0)
+    cfg = dict(n_p=8, tau=0.5, delta=0.02, max_rounds=4, seed=3)
+    fused, blocks = _port(monkeypatch, 8, starved, "lpm", cfg)
+    single, _ = _port(monkeypatch, 1, starved, "lpm", cfg)
+    assert blocks > 0
+    assert any(h["n_overflow"] > 0 for h in fused.history)
+    assert fused.graph.d_cap > 8 and fused.graph.d_cap == single.graph.d_cap
+    _assert_identical(fused, single)
+    # the re-derivation round: the first round after the starved one runs
+    # with complete rows in both
+    starved_at = [h["round"] for h in fused.history if h["n_overflow"] > 0]
+    assert starved_at == [h["round"] for h in single.history
+                          if h["n_overflow"] > 0]
+
+
+def test_block_stops_at_starved_budgets_inside_a_block(monkeypatch):
+    """Dense rows too narrow for a densifying graph starve in round 3, the
+    block's third: the block stops after it, and run_consensus re-derives
+    the width before the round after, as one round a host step does."""
+    monkeypatch.setenv("FCTPU_MOVE_PATH", "dense")
+    edges, _ = planted_partition(150, 5, 0.3, 0.05, seed=4)
+    slab = pack_edges(edges, 150, capacity=4000, device="cpu")
+    narrow = dataclasses.replace(slab, d_cap=20, d_hyb=0, hub_cap=0)
+    cfg = dict(n_p=6, tau=0.05, delta=0.02, max_rounds=6, seed=1)
+    fused, blocks = _port(monkeypatch, 8, narrow, "louvain", cfg)
+    single, _ = _port(monkeypatch, 1, narrow, "louvain", cfg)
+    assert blocks >= 2
+    fired = [h["round"] for h in single.history
+             if h["n_overflow"] * 8 > 150 * 20]
+    assert fired and fired[0] >= 3, fired
+    assert fused.graph.d_cap > 20
+    _assert_identical(fused, single)
+
+
+def test_block_auto_grow_mid_block_matches_per_round(monkeypatch):
+    """A round inside a block drops survivors: the block stops before it,
+    run_consensus grows the slab that round started from and runs it
+    again, as it does one round a step.  The graph densifies under a low tau
+    (closure adds edges every round), so a slab with room for the first
+    rounds saturates in round 3, the block's third."""
+    edges, _ = planted_partition(150, 5, 0.3, 0.05, seed=4)
+    slab = pack_edges(edges, 150, capacity=1700, device="cpu")
+    cfg = dict(n_p=6, tau=0.05, delta=0.02, max_rounds=6, seed=1)
+    fused, blocks = _port(monkeypatch, 8, slab, "louvain", cfg)
+    single, _ = _port(monkeypatch, 1, slab, "louvain", cfg)
+    assert blocks > 0
+    caps = [h["capacity"] for h in single.history]
+    grew_at = [i for i in range(1, len(caps)) if caps[i] > caps[i - 1]]
+    assert caps[0] == 1700 and grew_at and grew_at[0] >= 2, caps
+    _assert_identical(fused, single)
+
+
+def test_block_without_warm_start_matches_per_round(monkeypatch):
+    """warm_start off: every round cold, every round in the block."""
+    edges, n = _karate()
+    slab = pack_edges(edges, n, device="cpu")
+    cfg = dict(n_p=4, tau=0.2, delta=0.02, max_rounds=3, seed=5,
+               warm_start=False)
+    fused, blocks = _port(monkeypatch, 8, slab, "lpm", cfg)
+    single, _ = _port(monkeypatch, 1, slab, "lpm", cfg)
+    assert blocks > 0 and all(h["cold"] for h in fused.history)
+    _assert_identical(fused, single)
+
+
+@pytest.mark.parametrize("setting,cpu,cuda", [
+    (None, 1, 1), ("1", 1, 1), ("8", 8, 8), ("20", 8, 8), ("0", 1, 1),
+    ("auto", 1, None), (" AUTO ", 1, None)])
+def test_rounds_block_size_setting(monkeypatch, setting, cpu, cuda):
+    """Unset is one round a host step; an integer is clamped to 1..8;
+    ``auto`` leaves the size to the first round's time on the card and is
+    one round a step elsewhere."""
+    if setting is None:
+        monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", setting)
+    assert rounds_block_size(torch.device("cpu")) == cpu
+    assert rounds_block_size(torch.device("cuda")) == cuda
+
+
+def test_unset_block_size_runs_one_round_a_step(monkeypatch):
+    """A run with FCTPU_ROUNDS_BLOCK unset takes no block."""
+    monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    edges, n = _karate()
+    reg = tcounters.get_registry()
+    before = _blocks_run(reg)
+    res = run_consensus(pack_edges(edges, n, device="cpu"),
+                        get_detector("lpm"), ConsensusConfig(
+                            algorithm="lpm", n_p=4, max_rounds=3, seed=5))
+    assert res.rounds > 1 and _blocks_run(reg) == before
+
+
+# -- each capture-safe piece against its eager twin ---------------------
+
+
+def _hybrid_graph(n):
+    """Planted communities plus grafted hubs (carries hybrid sizing)."""
+    rng = np.random.default_rng(11)
+    edges, _ = planted_partition(n, 10, 0.06, 0.0008, seed=4)
+    hubs = rng.choice(n, 8, replace=False)
+    extra = np.array([[h, int(o)] for h in hubs
+                      for o in rng.choice(n, 120, replace=False)
+                      if int(o) != h])
+    return np.vstack([edges, extra]), n
+
+
+def _planted_slab(n=200, seed=0, **kw):
+    edges, _ = planted_partition(n, 4, 0.3, 0.02, seed=seed)
+    return pack_edges(edges, n, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("path,theta,singleton_only", [
+    ("matmul", 0.0, False), ("dense", 0.0, False), ("hybrid", 0.0, False),
+    ("hash", 0.0, False), ("matmul", 0.3, True), ("dense", 0.3, True)])
+def test_local_move_masked_matches_subset(monkeypatch, path, theta,
+                                          singleton_only):
+    """Every member sweeping (a stopped member keeps its labels) against
+    the eager loop over the members still moving."""
+    monkeypatch.setenv("FCTPU_MOVE_PATH", path)
+    slab = _planted_slab(seed=3)
+    if path == "hybrid":
+        edges, n = _hybrid_graph(600)
+        slab = pack_edges(edges, n, device="cpu")
+        assert slab.d_hyb > 0
+    slab = slab.with_weights(torch.where(slab.alive, 3.0, 0.0))
+    keys = prng.partition_keys(prng.key(4, "cpu"), 5)
+    kw = dict(max_sweeps=10, theta=theta, singleton_only=singleton_only,
+              stop_frac=0.02)
+    eager = louvain.local_move(slab, keys, **kw)
+    with capture.capture_safe():
+        safe = louvain.local_move(slab, keys, **kw)
+    assert torch.equal(eager, safe)
+
+
+def test_lpm_loop_masked_matches_subset():
+    slab = _planted_slab(seed=5)
+    keys = prng.partition_keys(prng.key(6, "cpu"), 5)
+    prep = lpm.Prepared(slab)
+    eager = lpm.lpm_members(prep, keys, max_iters=20)
+    with capture.capture_safe():
+        safe = lpm.lpm_members(lpm.Prepared(slab), keys, max_iters=20)
+    assert torch.equal(eager, safe)
+
+
+@pytest.mark.parametrize("path", ["dense", "hybrid"])
+def test_prepared_without_overflow_carries_all_false_coin_rows(monkeypatch,
+                                                              path):
+    """No row overflows: ``Prepared`` carries an all-false ``coin_rows``
+    tensor (no host read decides it), and the swap-breaking moves are
+    those of no coin rows at all."""
+    monkeypatch.setenv("FCTPU_MOVE_PATH", path)
+    edges, n = _hybrid_graph(600)
+    slab = pack_edges(edges, n, device="cpu")
+    prep = louvain.Prepared(slab)
+    assert prep.coin_rows is not None and not bool(prep.coin_rows.any())
+    key = prng.key(2, "cpu")[None].expand(3, 2)
+    want = torch.as_tensor(np.random.default_rng(0).random((3, n)) < 0.5)
+    a = louvain._swap_break(key, slab, want, prep.adj, prep.hyb, None)
+    b = louvain._swap_break(key, slab, want, prep.adj, prep.hyb,
+                            prep.coin_rows)
+    assert torch.equal(a, b)
+
+
+# -- a capture-safe round makes no host read ------------------------------
+
+
+class _NoHostRead(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raise on any op that reads a tensor's value to the host or sizes
+    its output from the data."""
+
+    BANNED = ("_local_scalar_dense", "nonzero", "masked_select", "item",
+              "_unique2", "unique_consecutive", "unique_dim")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.BANNED:
+            raise AssertionError(f"host read in a capture-safe round: "
+                                 f"{name}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("alg,path", [("louvain", "matmul"),
+                                      ("louvain", "hybrid"),
+                                      ("lpm", "dense")])
+def test_capture_safe_round_makes_no_host_read(monkeypatch, alg, path):
+    monkeypatch.setenv("FCTPU_MOVE_PATH", path)
+    if path == "hybrid":
+        edges, n = _hybrid_graph(600)
+    else:
+        edges, n = _karate()
+    slab = pack_edges(edges, n, device="cpu")
+    slab = slab.with_weights(torch.where(slab.alive, 1.0, 0.0))
+    n_p = 4
+    det = get_detector(alg)
+    det = getattr(det, "warm_variant", None) or det
+    labels = torch.arange(n).expand(n_p, n)
+    key = prng.stream(prng.key(3, "cpu"), prng.STREAM_ROUND, 2)
+    align = torch.ones((), dtype=torch.bool)
+
+    def one_round():
+        with capture.capture_safe():
+            return consensus_round(slab, key, det, n_p, 0.2, 0.02,
+                                   n_closure, init_labels=labels,
+                                   align=align,
+                                   prev_labels=labels,
+                                   active=torch.ones(n, dtype=torch.bool))
+
+    n_closure = int(slab.num_alive()) // 4
+    want = one_round()   # first use: lazy imports and caches
+
+    def refuse(*a, **k):
+        raise AssertionError("host read in a capture-safe round")
+
+    for name in ("item", "__bool__", "tolist", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "nonzero", refuse)
+    with _NoHostRead(), capture.capture_safe():
+        got = consensus_round(slab, key, det, n_p, 0.2, 0.02, n_closure,
+                              init_labels=labels, align=align,
+                              prev_labels=labels,
+                              active=torch.ones(n, dtype=torch.bool))
+    monkeypatch.undo()
+    assert torch.equal(got[1], want[1])
+    for f in ("src", "dst", "weight", "alive"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f))
+
+
+# -- the shape helper ------------------------------------------------------
+
+
+def test_first_hash_build_imports_no_sympy():
+    """``torch.broadcast_shapes`` imports sympy at its first call, a
+    host stall of seconds; the hash build and the slab's member shape
+    use a plain helper."""
+    code = (
+        "import sys, torch\n"
+        "from fastconsensus_tpu_torch.ops import segment as seg\n"
+        "from fastconsensus_tpu_torch.graph import pack_edges\n"
+        "import numpy as np\n"
+        "assert 'sympy' not in sys.modules, 'sympy at import'\n"
+        "n = torch.arange(6); lab = torch.arange(6) % 3\n"
+        "seg.build_hash_totals(n, lab, torch.ones(6), n >= 0, 64)\n"
+        "s = pack_edges(np.array([[0, 1], [1, 2]]), 3, device='cpu')\n"
+        "assert s.batch == ()\n"
+        "assert 'sympy' not in sys.modules, 'sympy at first use'\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_broadcast_shape_matches_torch():
+    from fastconsensus_tpu_torch.utils.shapes import broadcast_shape
+
+    for shapes in [((3, 1), (1, 4)), ((), (2, 3)), ((5,), (4, 1)),
+                   ((2, 1, 3), (4, 3)), ((7,),)]:
+        assert broadcast_shape(*shapes) == torch.broadcast_shapes(*shapes)
+    with pytest.raises(ValueError):
+        broadcast_shape((3,), (4,))

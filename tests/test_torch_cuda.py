@@ -651,3 +651,139 @@ def test_footprint_model_bounds_a_detect_call_on_card(card):
     model = ep.slab_peak_bytes("detect", slab, n_p=n_p)["peak"]
     assert out.shape == (n_p, host.n_nodes)
     assert peak <= model <= 2 * peak, (peak, model)
+
+
+def test_captured_if_nodes_replay_as_eager(card):
+    """ops/capture.py's conditional nodes: a captured step with nested
+    device-side branches and a row_totals launch, replayed, computes
+    what the same step computes eagerly (branches selected), and the
+    replayed launches reach the counters."""
+    from fastconsensus_tpu_torch.ops import capture
+
+    rng = np.random.default_rng(2)
+    lab, w = random_rows(rng, 600, 17, 6)
+    lab, w = torch.as_tensor(lab, device=card), torch.as_tensor(w,
+                                                                device=card)
+    pred = torch.zeros((), dtype=torch.bool, device=card)
+    inner = torch.zeros((), dtype=torch.bool, device=card)
+    out = torch.zeros(600, 17, device=card)
+    count = torch.zeros((), dtype=torch.int64, device=card)
+
+    def step():
+        def body():
+            total, _ = rk.row_totals(lab, w)
+            c = count.clone()
+            capture.when(inner, lambda: [c + 10], [c])
+            return [out + total, c + 1]
+        capture.when(pred, body, [out, count])
+
+    def eager(p, q):
+        out.zero_()
+        count.zero_()
+        pred.fill_(p)
+        inner.fill_(q)
+        step()
+        return out.clone(), int(count)
+
+    want = {(p, q): eager(p, q) for p in (False, True) for q in (False, True)}
+    rk.reset_launches()
+    graph = capture.CapturedStep(step, card)
+    try:
+        assert rk.LAUNCHES["row_totals"] == 0    # a capture launches nothing
+        for (p, q), (w_out, w_count) in want.items():
+            out.zero_()
+            count.zero_()
+            pred.fill_(p)
+            inner.fill_(q)
+            graph.replay()
+            assert torch.equal(out, w_out) and int(count) == w_count
+        rk.fold_device_counts(card, rk.device_counts(card).cpu().numpy())
+        assert rk.LAUNCHES["row_totals"] == 2     # the two replays with pred
+        assert rk.ROW_TOTALS_SHAPES[(600, 17)] == 2
+    finally:
+        graph.close()
+
+
+@pytest.mark.parametrize("what", ["sync", "item", "to_host", "python"])
+def test_failed_capture_raises_and_leaves_the_card_usable(card, what):
+    """A host read, a device synchronize or a Python error inside a
+    captured IF body raises (no fallback), and the card stays usable: a
+    device synchronize and a later capture work, and the capture's guard
+    on ``torch.cuda.synchronize`` is gone once it ends."""
+    from fastconsensus_tpu_torch.ops import capture
+
+    sync = torch.cuda.synchronize
+    x = torch.zeros(4, device=card)
+    pred = torch.ones((), dtype=torch.bool, device=card)
+
+    def bad():
+        def inner():
+            if what == "sync":
+                torch.cuda.synchronize()
+            elif what == "item":
+                bool(x.sum() > 0)
+            elif what == "to_host":
+                x.cpu()
+            else:
+                raise ValueError("an error in the body")
+            return [x + 1]
+
+        capture.when(pred, lambda: (capture.when(pred, inner, [x]),
+                                    [x + 2])[1], [x])
+
+    with pytest.raises((capture.CaptureError, ValueError)):
+        capture.CapturedStep(bad, card)
+    assert torch.cuda.synchronize is sync
+    torch.cuda.synchronize()
+    good = capture.CapturedStep(
+        lambda: capture.when(pred, lambda: [x + 1], [x]), card)
+    try:
+        x.zero_()
+        good.replay()
+        good.replay()
+        assert x.tolist() == [2.0] * 4
+    finally:
+        good.close()
+
+
+@pytest.mark.parametrize("alg,path", [("louvain", "hybrid"), ("lpm", "dense")])
+def test_fused_block_on_card_equals_eager_rounds(card, monkeypatch, alg,
+                                                 path):
+    """The fused round block (captured once, replayed a round at a time)
+    against one round a host step on the card, exactly, and against the
+    block on the CPU (partitions and integer history); row_totals
+    launched at the same widths as many times."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.utils.synth import planted_partition
+
+    edges, _ = planted_partition(1500, 10, 0.03, 0.002, seed=4)
+    monkeypatch.setenv("FCTPU_MOVE_PATH", path)
+    cfg = ConsensusConfig(algorithm=alg, n_p=4, max_rounds=4, seed=5,
+                          tau=0.2 if alg == "louvain" else 0.8)
+    runs, widths = {}, {}
+    for dev, block in ((card, "8"), (card, "1"), ("cpu", "8")):
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", block)
+        rk.reset_launches()
+        runs[(str(dev), block)] = run_consensus(
+            pack_edges(edges, 1500, device=dev), get_detector(alg), cfg)
+        widths[(str(dev), block)] = {
+            d: sum(c for (_, dd), c in rk.ROW_TOTALS_SHAPES.items()
+                   if dd == d) for (_, d) in rk.ROW_TOTALS_SHAPES}
+    fused, single, cpu = (runs[(str(card), "8")], runs[(str(card), "1")],
+                          runs[("cpu", "8")])
+    assert fused.history == single.history
+    np.testing.assert_array_equal(np.stack(fused.partitions),
+                                  np.stack(single.partitions))
+    for f in ("src", "dst", "weight", "alive"):
+        assert torch.equal(getattr(fused.graph, f), getattr(single.graph, f))
+    assert widths[(str(card), "8")] == widths[(str(card), "1")]
+    assert sum(widths[(str(card), "8")].values()) > 0
+    np.testing.assert_array_equal(np.stack(fused.partitions),
+                                  np.stack(cpu.partitions))
+    ints = ("n_alive", "n_unconverged", "n_closure_added", "n_repaired",
+            "capacity", "labels_changed", "cold")
+    assert [[h[k] for k in ints] for h in fused.history] == \
+        [[h[k] for k in ints] for h in cpu.history]
