@@ -10,13 +10,15 @@ and checkpoint/resume in the reference's file format
 (``utils/checkpoint.py``), and fcdelta's incremental re-consensus from a
 parent run's partitions (``init_labels`` / ``active_mask``).  Where the
 reference fuses rounds (one call a round, no checkpoint, no mesh, and
-here no detect cache) Louvain's and LPM's rounds run in fused blocks
-(``engine.RoundsBlock``: a captured CUDA graph on the card, one stats
-readback a block), bit for bit one round a host step.
-:func:`run_consensus_batch` runs B same-bucket
-graphs as one member-batched detection stream, each job's result its
-solo run's.  With ``detect_cache_dir`` every round's detection and the
-final re-detection run in driver chunks persisted as they finish, so a
+here no detect cache) Louvain's, LPM's and Leiden's rounds run in fused
+blocks when FCTPU_ROUNDS_BLOCK asks for them (``engine.RoundsBlock``: a
+captured CUDA graph on the card, one stats readback a block), bit for
+bit one round a host step.  :func:`run_consensus_batch` runs B
+same-bucket graphs as one member-batched detection stream, each job's
+result its solo run's, its rounds in batched blocks alike
+(``engine.BatchBlock``).  With ``detect_cache_dir`` every round's
+detection and the final re-detection run in driver chunks persisted as
+they finish, so a
 killed run restarts within the round it died in.  fcobs spans and
 counters (``obs/``) mark the same places as the reference's.  With a
 device mesh (``run_consensus(mesh=)``, ``parallel/``) the ensemble splits
@@ -38,8 +40,9 @@ import numpy as np
 import torch
 
 from fastconsensus_tpu_torch import policy, sizing
-from fastconsensus_tpu_torch.engine import (BLOCK_MAX, RoundsBlock,
-                                            RoundStats, _detect_chunked,
+from fastconsensus_tpu_torch.engine import (BLOCK_MAX, BatchBlock,
+                                            RoundsBlock, RoundStats,
+                                            _detect_chunked,
                                             consensus_batch_round,
                                             consensus_round, detect_stacked,
                                             stats_to_host)
@@ -348,6 +351,14 @@ def rounds_block_size(dev: torch.device) -> Optional[int]:
     if raw.lower() == "auto":
         return None if dev.type == "cuda" else 1
     return max(1, min(BLOCK_MAX, env_int("FCTPU_ROUNDS_BLOCK", 1)))
+
+
+def batch_block_size(dev: torch.device) -> int:
+    """The batched block size of ``run_consensus_batch`` on ``dev``:
+    FCTPU_ROUNDS_BLOCK read as :func:`rounds_block_size` reads it, with
+    ``auto`` on the card the reference's batch default, BLOCK_MAX."""
+    block = rounds_block_size(dev)
+    return BLOCK_MAX if block is None else block
 
 
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
@@ -816,7 +827,26 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     Each batched round detects the members of all the jobs it runs as one
     member-batched stream (``engine.consensus_batch_round``; detectors
     without ``supports_stack``, the host C++ ones, run once per job) and
-    reads back one stack of stats.  **Bit-parity contract**: every job's
+    reads back one stack of stats.
+
+    **Batched blocks** (``engine.BatchBlock``, the reference's
+    ``consensus_batch_block``): with FCTPU_ROUNDS_BLOCK at 2 or more
+    (clamped to 8), or ``auto`` on the card (8, the reference's batch
+    default), the warm rounds (every round without warm start) of a
+    detector with ``supports_block`` run up to that many at a time, with
+    one readback of every job's stats, each folded into its job's policy
+    as one round a step folds it; on the card the batched round is
+    captured once a run into a CUDA graph.  A round 0 and a masked
+    refresh still run as one batched round; a job freezes inside a block
+    where one round a step would drop it or split it off, and a refresh
+    due for any job ends the block for all.  The stacked stream must be
+    one member chunk, the solo driver's rule.  **Departure**: unset (or
+    1) keeps one batched round a host step, where the reference blocks
+    at 8 by default; off the card ``auto`` is one round a step too (a
+    block there computes both sides of every branch).  The host
+    detectors keep one round a step.
+
+    **Bit-parity contract**: every job's
     partitions, rounds, convergence and history are those of running it
     alone through :func:`run_consensus` with its own key.  Round keys
     derive from ``(key_b, round_b)`` as :func:`run_consensus`'s, and each
@@ -890,6 +920,68 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     def active() -> np.ndarray:
         return ~conv & ~solo & (rounds < config.max_rounds)
 
+    # Batched blocks (engine.BatchBlock; one captured CUDA graph on the
+    # card for the whole run): FCTPU_ROUNDS_BLOCK as the solo driver reads
+    # it, "auto" the reference's batch default of BLOCK_MAX on the card.
+    # Warm rounds (or every round without warm start) of a detector whose
+    # round is one call, with its stacked detection in one member chunk
+    # (the solo fused() rule); round 0 and refreshes run alone
+    block = batch_block_size(dev)
+    det_block = detect_warm if warm else detect
+    if block >= 2 and not (
+            getattr(detect, "supports_block", False) and
+            getattr(detect, "supports_stack", False) and
+            det_block.chunk_of(stack_slabs(cur), B * n_p) >= B * n_p):
+        block = 1
+    runner: Optional[BatchBlock] = None
+
+    def record(i: int, st: RoundStats, capacity: int, cold: bool) -> None:
+        """Fold one of job i's rounds into its policy and history."""
+        rounds[i] += 1
+        jobs[i].observe(_history_entry(st, int(rounds[i]), capacity,
+                                       n_nodes, cold))
+        conv[i] = bool(st.converged)
+
+    def run_block() -> None:
+        """Up to ``block`` rounds of every active job in one batched
+        block, with one readback."""
+        nonlocal runner
+        mask = active()
+        idx = [int(i) for i in np.flatnonzero(mask)]
+        if not idx:
+            return
+        if runner is None:
+            runner = BatchBlock(cur[0], B, det_block, n_p, config.tau,
+                                config.delta, n_closure, warm,
+                                config.align_frac if jobs[0].align_ok
+                                else 0.0, sampler, config.closure_tau)
+        iters = np.where(mask, np.minimum(block, config.max_rounds - rounds),
+                         0)
+        mode = "warm" if warm else "scratch"
+        with tracer.step_span("batch_block", int(rounds[idx].min()), b=B,
+                              mode=mode, block=int(iters.max())):
+            res = runner.run(
+                cur, keys, labels, rounds, iters,
+                [bool(mask[i]) and jobs[i].align(int(rounds[i]))
+                 for i in range(B)],
+                [jobs[i].pstate for i in range(B)], config.auto_grow,
+                [jobs[i].budget_noop if jobs[i].budget_noop is not None
+                 else (-1, -1, -1) for i in range(B)])
+        obs_counters.host_sync("batch_block_stats")
+        obs_reg.inc("batch.blocks")
+        for i in idx:
+            done = res.done[i]
+            for st in res.stats[i][:done]:
+                record(i, st, res.slabs[i].capacity, bool(st.cold))
+            if done:
+                cur[i], labels[i] = res.slabs[i], res.labels[i]
+            if res.grow[i]:
+                # run_consensus would grow the slab and replay
+                split_off(i, f"slab saturated at round {rounds[i]}")
+            elif done and jobs[i].regrow_budgets(cur[i]) is not cur[i]:
+                split_off(i, f"budget re-derivation after round "
+                             f"{rounds[i]}")
+
     def run_round(mode: str, det: Detector, only=None) -> None:
         mask = active() if only is None else active() & only
         idx = [int(i) for i in np.flatnonzero(mask)]
@@ -920,11 +1012,7 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
                 # run_consensus would grow the slab and replay
                 split_off(i, f"slab saturated at round {rounds[i]}")
                 continue
-            rounds[i] += 1
-            jobs[i].observe(_history_entry(st, int(rounds[i]),
-                                           slab_new.capacity, n_nodes,
-                                           mode != "warm"))
-            conv[i] = bool(st.converged)
+            record(i, st, slab_new.capacity, mode != "warm")
             cur[i], labels[i] = slab_new, lab
             # run_consensus re-derives starved budgets before its next
             # round and its final re-detection: new statics leave the
@@ -933,23 +1021,33 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
                 split_off(i, f"budget re-derivation after round "
                              f"{rounds[i]}")
 
-    if warm:
-        # absolute round 0: uniformly cold (singleton-init full sweeps)
-        run_round("cold", detect)
-        while active().any():
-            # fcheck: ok=sync-in-loop (host bookkeeping: active() is a
-            # numpy mask and mode() reads host state; no tensor here)
-            refresh = np.array([bool(a) and
-                                jobs[i].mode(int(rounds[i])) == "refresh"
-                                for i, a in enumerate(active())])
-            if refresh.any():
-                obs_reg.inc("batch.refresh_rounds", int(refresh.sum()))
-                run_round("cold", detect_refresh, only=refresh)
-                continue
-            run_round("warm", detect_warm)
-    else:
-        while active().any():
-            run_round("scratch", detect)
+    try:
+        if warm:
+            # absolute round 0: uniformly cold (singleton-init full sweeps)
+            run_round("cold", detect)
+            while active().any():
+                # fcheck: ok=sync-in-loop (host bookkeeping: active() is a
+                # numpy mask and mode() reads host state; no tensor here)
+                refresh = np.array([bool(a) and
+                                    jobs[i].mode(int(rounds[i])) == "refresh"
+                                    for i, a in enumerate(active())])
+                if refresh.any():
+                    obs_reg.inc("batch.refresh_rounds", int(refresh.sum()))
+                    run_round("cold", detect_refresh, only=refresh)
+                    continue
+                if block >= 2:
+                    run_block()
+                else:
+                    run_round("warm", detect_warm)
+        else:
+            while active().any():
+                if block >= 2:
+                    run_block()
+                else:
+                    run_round("scratch", detect)
+    finally:
+        if runner is not None:
+            runner.close()
 
     batched = [i for i in range(B) if not solo[i]]
     if batched:

@@ -9,10 +9,9 @@ Counterpart of ``fastconsensus_tpu/engine.py``.  A round (reference
     -> convergence check
 
 PyTorch runs eagerly, so the reference's jitted executables have no
-counterpart here and ``lax.cond`` is a host branch.  Its batched round
-block (``consensus_batch_block``) is :func:`consensus_batch_round` without
-the on-device loop: one round of B same-bucket graphs, one detection
-stream over all of them, the tail per graph.
+counterpart here and ``lax.cond`` is a host branch.
+:func:`consensus_batch_round` is one round of B same-bucket graphs: one
+detection stream over all of them, the tail per graph.
 
 :func:`_detect_chunked` is the elastic-recovery detection: the members
 run in driver chunks, each persisted to a cache dir as it finishes.  On
@@ -24,8 +23,11 @@ and the round's tail runs edge-locally over the sharded slab
 :class:`RoundsBlock` (with :func:`consensus_rounds_block`) is the fused
 solo round block: up to ``BLOCK_MAX`` rounds with one stats readback,
 each round run through its capture-safe variants (``ops/capture.py``)
-and, on the card, replayed from one captured CUDA graph.  It computes
-exactly what one round a host step computes.
+and, on the card, replayed from one captured CUDA graph.
+:class:`BatchBlock` (with :func:`consensus_batch_block`, the reference's
+batched block) does the same for the B jobs of a batch: rounds of
+:func:`consensus_batch_round` with per-job stops, one graph a batch run.
+Each computes exactly what one round a host step computes.
 """
 
 from __future__ import annotations
@@ -685,6 +687,302 @@ def consensus_rounds_block(slab: GraphSlab, key: torch.Tensor,
         return runner.run(slab, key, labels0, start_round,
                           min(block, max_iters), align0, pstate0, watch0,
                           noop0, cold_round)
+    finally:
+        runner.close()
+
+
+class BatchBlockResult(NamedTuple):
+    """What one batched block hands back to ``run_consensus_batch``, per
+    job."""
+
+    slabs: List[GraphSlab]          # each job's slab after its done rounds
+    labels: List[torch.Tensor]      # each job's labels after them [n_p, N]
+    done: List[int]                 # rounds each job completed
+    stats: List[List[RoundStats]]   # host stats of those rounds, then,
+                                    # when ``grow``, of the round that
+                                    # dropped
+    grow: List[bool]                # a round dropped survivors under
+                                    # auto-grow (not counted, no change)
+
+
+class BatchBlock:
+    """The batched round block of one ``run_consensus_batch`` call: the
+    reference's ``consensus_batch_block`` under ``_jitted_rounds_batch``.
+    Up to ``BLOCK_MAX`` rounds of B same-bucket jobs a call, with one
+    readback of every job's stats.
+
+    One static mode: ``warm`` (each job's round from its carried labels
+    with the warm variant, keys aligned by its carried flag) or
+    ``scratch`` (every round from no init, a run without warm start).  A
+    cold round 0 and a masked stagnation refresh run outside, as one
+    eager batched round.  Job b's round ``i`` derives its key from
+    ``(key_b, start_round_b + i)`` and folds its policy on the device by
+    ``policy.observe``, as the solo driver does.
+
+    A job freezes after the round that converged, at its ``max_iters``,
+    after a round whose budgets starve where the host would re-derive
+    them (``watch``/``noop``), and before counting a round that dropped
+    survivors under auto-grow (``run_consensus_batch`` splits such a job
+    off to a solo run).  Before a warm round that a job's policy would run
+    cold (``policy.stale`` / ``stalled``) the block stops for every job:
+    one batched round a host step runs that refresh before any other
+    job's next round, so the block's rounds keep its member streams.
+
+    A frozen job still rides the stacked detection at its static shape,
+    its members started stopped (``capture.sweeping``: they add no sweep
+    and keep their start labels), and keeps its labels and slab by
+    ``torch.where``; the tail runs per job, each in an IF node on its
+    job's ``run``, and the whole round in one IF node on "any job runs".
+    So a block launches exactly what one batched round a host step
+    launches.
+
+    The block object lives for a whole batch run: B and the bucket's
+    statics never change under it (a job whose statics would change is
+    split off), so the card captures once a run and replays the one
+    graph for every block.  Elsewhere the same round runs eagerly, its
+    branches computed and selected."""
+
+    def __init__(self, slab: GraphSlab, n_jobs: int, detect: Detector,
+                 n_p: int, tau: float, delta: float, n_closure: int,
+                 warm: bool, align_frac: float = 0.0, sampler: str = "csr",
+                 closure_tau: Optional[float] = None):
+        dev = slab.device
+        self.device = dev
+        self.n_jobs = n_jobs
+        self.detect = detect
+        self.n_p, self.tau, self.delta = n_p, tau, delta
+        self.n_closure, self.warm = n_closure, warm
+        self.align_frac, self.sampler = align_frac, sampler
+        self.closure_tau = closure_tau
+        n, cap, b = slab.n_nodes, slab.capacity, n_jobs
+
+        def z(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.stacked = dataclasses.replace(
+            slab, src=z(torch.int64, b, cap), dst=z(torch.int64, b, cap),
+            weight=z(torch.float32, b, cap), alive=z(torch.bool, b, cap))
+        self.slabs = [unstack_slab(self.stacked, j) for j in range(b)]
+        self.labels = z(torch.int64, b, n_p, n)
+        self.keys = z(torch.int64, b, 2)
+        self.start_round, self.max_iters = z(torch.int64, b), \
+            z(torch.int64, b)
+        self.i = z(torch.int64, b)
+        self.watch, self.noop = z(torch.bool, b), z(torch.int64, b, 3)
+        self.conv, self.need = z(torch.bool, b), z(torch.bool, b)
+        self.grow, self.stop = z(torch.bool, b), z(torch.bool, b)
+        self.aligned = z(torch.bool, b)
+        self.pst = [z(torch.int32, b) for _ in policy.INITIAL]
+        self.buf = _stats_like(n_p, dev, (BLOCK_MAX, b))
+        self.tmp = _stats_like(n_p, dev, (b,))
+        self.step = None
+
+    # -- the guarded round --------------------------------------------
+
+    def _state(self) -> List[torch.Tensor]:
+        s = self.stacked
+        return [s.src, s.dst, s.weight, s.alive, self.labels]
+
+    def _round(self, run: torch.Tensor) -> List[torch.Tensor]:
+        """One round of the jobs ``run`` (bool[B]) from the carry: the new
+        carry and the round's stats, in the order :meth:`_step` lists
+        them."""
+        dev, b, n_p = self.device, self.n_jobs, self.n_p
+        n = self.stacked.n_nodes
+        xp = _DeviceXP(dev)
+        k = prng.stream(self.keys, prng.STREAM_ROUND,
+                        self.start_round + self.i)
+        derived = [round_keys(k[j], n_p, self.aligned[j] if self.warm
+                              else False) for j in range(b)]
+        with capture.sweeping(run.repeat_interleave(n_p)):
+            lab = detect_stacked(
+                self.detect, self.stacked,
+                torch.cat([d for d, _ in derived], dim=0),
+                self.labels.reshape(b * n_p, n) if self.warm else None
+            ).view(b, n_p, n)
+        state = self._state()
+        new = [t.clone() for t in state[:4]]
+        tmp = [t.clone() for t in self.tmp]
+        for j, (_, k_closure) in enumerate(derived):
+            def tail(j=j, k_closure=k_closure):
+                s, st = consensus_tail(
+                    self.slabs[j], lab[j], k_closure, n_p, self.tau,
+                    self.delta, self.n_closure,
+                    closure_tau=self.closure_tau, prev_labels=self.labels[j],
+                    sampler=self.sampler)
+                return [s.src, s.dst, s.weight, s.alive, *st]
+
+            capture.when(run[j], tail, [t[j] for t in new + tmp])
+        cold = torch.full((b,), not self.warm, dtype=torch.bool, device=dev)
+        st = RoundStats(*tmp)._replace(cold=cold)
+        # a round that dropped survivors under auto-grow does not count
+        drop = self.watch & (st.n_dropped > 0) & run
+        keep = run & ~drop
+        pst_new = policy.observe(xp, policy.PolicyState(*self.pst), cold,
+                                 st.n_unconverged.to(torch.int32),
+                                 st.n_alive.to(torch.int32))
+        if self.warm and self.align_frac > 0:
+            aligned = policy.align_now(xp, self.align_frac, pst_new)
+        else:
+            aligned = torch.zeros((b,), dtype=torch.bool, device=dev)
+        s = self.stacked
+        need = policy.budgets_stale(
+            xp, st.n_overflow, st.n_hub_overflow, s.d_cap, s.hub_cap,
+            s.n_nodes, st.n_alive, s.agg_cap) & self.watch & (
+            (st.n_overflow > self.noop[:, 0]) |
+            (st.n_hub_overflow > self.noop[:, 1]) |
+            (st.n_alive > self.noop[:, 2]))
+        return ([torch.where(keep[:, None], a, o)
+                 for a, o in zip(new, state[:4])] +
+                [torch.where(keep[:, None, None], lab, self.labels),
+                 self.i + keep.to(torch.int64),
+                 torch.where(run, keep & st.converged, self.conv),
+                 torch.where(run, keep & need, self.need),
+                 torch.where(run, drop, self.grow),
+                 torch.where(keep, aligned, self.aligned)]
+                + [torch.where(keep, v.to(torch.int32), o)
+                   for v, o in zip(pst_new, self.pst)] + list(st))
+
+    def _step(self) -> None:
+        """One guarded round of every job still going, its stats written
+        into each job's row ``i``."""
+        b = self.n_jobs
+        i0 = self.i.clone()
+        go = ~self.conv & ~self.need & ~self.grow & ~self.stop & \
+            (self.i < self.max_iters)
+        if self.warm:
+            xp = _DeviceXP(self.device)
+            pst = policy.PolicyState(*self.pst)
+            cold = policy.stale(xp, self.delta, pst) | \
+                policy.stalled(xp, self.delta, pst, self.aligned)
+            halt = (go & cold).any()
+            self.stop.copy_(self.stop | halt)
+            run = go & ~halt
+        else:
+            run = go
+        carry = self._state() + [self.i, self.conv, self.need, self.grow,
+                                 self.aligned, *self.pst]
+        capture.when(run.any(), lambda: self._round(run),
+                     carry + list(self.tmp))
+        at = i0 * b + torch.arange(b, device=self.device)
+        for buf, t in zip(self.buf, self.tmp):
+            buf.view((BLOCK_MAX * b,) + buf.shape[2:]).index_copy_(0, at, t)
+
+    # -- a block --------------------------------------------------------
+
+    def run(self, slabs: List[GraphSlab], keys: List[torch.Tensor],
+            labels0: List[torch.Tensor], start_rounds, max_iters, align0,
+            pstates0, watch0, noops0) -> BatchBlockResult:
+        """Up to ``max(max_iters)`` (at most ``BLOCK_MAX``) rounds of the
+        B jobs, job b from ``slabs[b]`` and ``labels0[b]`` (its previous
+        round's labels) for ``max_iters[b]`` rounds (0: frozen), with one
+        readback."""
+        n_steps = self.load(slabs, keys, labels0, start_rounds, max_iters,
+                            align0, pstates0, watch0, noops0)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            if self.step is None:
+                self._capture()
+            for _ in range(n_steps):
+                self.step.replay()
+        else:
+            with capture.capture_safe():
+                for _ in range(n_steps):
+                    self._step()
+        return self._readback()
+
+    def load(self, slabs: List[GraphSlab], keys: List[torch.Tensor],
+             labels0: List[torch.Tensor], start_rounds, max_iters, align0,
+             pstates0, watch0, noops0) -> int:
+        """Write a block's inputs into the static buffers: the number of
+        steps it runs."""
+        b = self.n_jobs
+        n_steps = max(int(m) for m in max_iters)
+        if not 1 <= n_steps <= BLOCK_MAX:
+            raise ValueError(f"a block runs 1..{BLOCK_MAX} rounds, not "
+                             f"{n_steps}")
+        stack_slabs(slabs, out=self.stacked)
+        torch.stack([t.to(self.device) for t in labels0], out=self.labels)
+        torch.stack([t.to(self.device) for t in keys], out=self.keys)
+        # every job's scalars in one copy to the device
+        ints = np.zeros((b, 16), np.int64)
+        ints[:, 0] = start_rounds
+        ints[:, 1] = max_iters
+        ints[:, 2] = align0
+        ints[:, 3] = watch0
+        ints[:, 4:7] = noops0
+        ints[:, 7:14] = [[int(v) for v in p] for p in pstates0]
+        host = torch.as_tensor(ints).to(self.device)
+        for j, t in enumerate((self.start_round, self.max_iters,
+                               self.aligned, self.watch)):
+            t.copy_(host[:, j])
+        self.noop.copy_(host[:, 4:7])
+        for j, t in enumerate(self.pst):
+            t.copy_(host[:, 7 + j])
+        for t in (self.i, self.conv, self.need, self.grow, self.stop):
+            t.zero_()
+        return n_steps
+
+    def _readback(self) -> BatchBlockResult:
+        b = self.n_jobs
+        on_card = self.device.type == "cuda"
+        # the block's one readback: each job's rounds done and grow flag,
+        # every round's stats and (on the card) the replayed launches
+        parts = [self.i, self.grow, *(t.reshape(-1) for t in self.buf)]
+        if on_card:
+            parts.append(row_kernels.device_counts(self.device))
+        # fcheck: ok=f64-dtype (one host copy of every stats field: float64
+        # holds each int count and float32 value exactly)
+        flat = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
+        done = [int(v) for v in flat[:b]]
+        grow = [bool(v) for v in flat[b:2 * b]]
+        at, fields = 2 * b, []
+        for t in self.buf:
+            fields.append(flat[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        if on_card:
+            row_kernels.fold_device_counts(self.device, flat[at:])
+        stats = [[RoundStats(*(f[r, j] for f in fields))
+                  for r in range(done[j] + int(grow[j]))] for j in range(b)]
+        return BatchBlockResult(
+            [unstack_slab(self.stacked, j, copy=True) for j in range(b)],
+            [self.labels[j].clone() for j in range(b)], done, stats, grow)
+
+    def _capture(self) -> None:
+        """Capture the guarded batched round: span- and counter-wrapped,
+        as :meth:`RoundsBlock._capture`."""
+        obs_reg = obs_counters.get_registry()
+        t0 = time.perf_counter()
+        with get_tracer().span("setup_executables"):
+            self.step = capture.CapturedStep(self._step, self.device)
+        obs_reg.inc("engine.setup_executables")
+        obs_reg.observe("engine.setup_executables.seconds",
+                        time.perf_counter() - t0)
+
+    def close(self) -> None:
+        """Free the captured graph and its pools."""
+        if self.step is not None:
+            self.step.close()
+            self.step = None
+
+
+def consensus_batch_block(slabs: List[GraphSlab], keys: List[torch.Tensor],
+                          labels0: List[torch.Tensor], start_rounds,
+                          max_iters, align0, pstates0, watch0, noops0,
+                          detect: Detector, n_p: int, tau: float,
+                          delta: float, n_closure: int, warm: bool,
+                          align_frac: float = 0.0, sampler: str = "csr",
+                          closure_tau: Optional[float] = None
+                          ) -> BatchBlockResult:
+    """One batched block of the jobs ``slabs`` (see :class:`BatchBlock`,
+    which ``run_consensus_batch`` keeps for the whole run so that the
+    card captures once).  ``detect`` is the detector of the block's
+    rounds: the warm variant with ``warm``."""
+    runner = BatchBlock(slabs[0], len(slabs), detect, n_p, tau, delta,
+                        n_closure, warm, align_frac, sampler, closure_tau)
+    try:
+        return runner.run(slabs, keys, labels0, start_rounds, max_iters,
+                          align0, pstates0, watch0, noops0)
     finally:
         runner.close()
 

@@ -285,7 +285,7 @@ def check_stackable(slabs) -> None:
                 f"agg_cap); pad through one serve/bucketer bucket first")
 
 
-def stack_slabs(slabs) -> GraphSlab:
+def stack_slabs(slabs, out: Optional[GraphSlab] = None) -> GraphSlab:
     """Stack B same-shaped slabs along a new leading graph axis: a slab
     whose fields are ``[B, capacity]``.  Every static field (n_nodes,
     capacity and the sizing) must be identical across the batch, as the
@@ -293,20 +293,41 @@ def stack_slabs(slabs) -> GraphSlab:
 
     Detection reads such a slab as graph-stacked: with ``K = B * per``
     keys, member ``k`` runs on graph ``k // per`` (``models/base.
-    ensemble``)."""
+    ensemble``).
+
+    ``out`` (a stacked slab of the same statics and B, such as a round
+    block's static buffers): the slabs are copied into its fields in
+    place, so they keep their addresses (a captured CUDA graph reads
+    them), and ``out`` is returned."""
     check_stackable(slabs)
-    return dataclasses.replace(
-        slabs[0], src=torch.stack([s.src for s in slabs]),
-        dst=torch.stack([s.dst for s in slabs]),
-        weight=torch.stack([s.weight for s in slabs]),
-        alive=torch.stack([s.alive for s in slabs]))
+    if out is None:
+        return dataclasses.replace(
+            slabs[0], src=torch.stack([s.src for s in slabs]),
+            dst=torch.stack([s.dst for s in slabs]),
+            weight=torch.stack([s.weight for s in slabs]),
+            alive=torch.stack([s.alive for s in slabs]))
+    if _statics(out) != _statics(slabs[0]) or \
+            tuple(out.batch) != (len(slabs),):
+        raise ValueError(
+            f"cannot stack {len(slabs)} slabs of statics "
+            f"{_statics(slabs[0])} into buffers of statics {_statics(out)} "
+            f"stacked {tuple(out.batch)}")
+    for f in ("src", "dst", "weight", "alive"):
+        torch.stack([getattr(s, f) for s in slabs], out=getattr(out, f))
+    return out
 
 
-def unstack_slab(stacked: GraphSlab, b: int) -> GraphSlab:
-    """Graph ``b`` of a :func:`stack_slabs` result (views, no copy)."""
+def unstack_slab(stacked: GraphSlab, b: int, copy: bool = False
+                 ) -> GraphSlab:
+    """Graph ``b`` of a :func:`stack_slabs` result: views, or with
+    ``copy`` fresh tensors (a slab that outlives the next write into a
+    round block's static buffers)."""
+    def pick(t):
+        return t[b].clone() if copy else t[b]
+
     return dataclasses.replace(
-        stacked, src=stacked.src[b], dst=stacked.dst[b],
-        weight=stacked.weight[b], alive=stacked.alive[b])
+        stacked, src=pick(stacked.src), dst=pick(stacked.dst),
+        weight=pick(stacked.weight), alive=pick(stacked.alive))
 
 
 def grow_slab(slab: GraphSlab, new_capacity: int) -> GraphSlab:

@@ -23,9 +23,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Protocol
 
+import numpy as np
 import torch
 
 from fastconsensus_tpu_torch.graph import GraphSlab
+from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.sizing import members_per_call
 
 
@@ -67,32 +69,51 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
     members its graph's state; the bytes that copies per member
     (``prep.member_copy_bytes()``) count against the chunk's budget."""
 
+    def layout(slab: GraphSlab, n_members: int, prep):
+        """``(graph of each member on the device and on the host, bytes
+        copied per member)``: ``(None, None, 0)`` for a shared slab."""
+        if not slab.batch:
+            return None, None, 0
+        n_graphs = slab.batch[0]
+        if len(slab.batch) != 1 or n_members % n_graphs:
+            raise ValueError(
+                f"{n_members} keys for a slab stacked {tuple(slab.batch)}: "
+                f"expected one axis of graphs and a multiple of it")
+        per = n_members // n_graphs
+        # the layout is static: the host knows it with no read back
+        return (torch.arange(n_graphs, device=slab.device
+                             ).repeat_interleave(per),
+                np.repeat(np.arange(n_graphs), per),
+                prep.member_copy_bytes())
+
     def detect(slab: GraphSlab, keys: torch.Tensor,
                init_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         n_keys = keys.shape[0]
         prep = prepare(slab)
-        graph_of = None
-        copied = 0
-        if slab.batch:
-            n_graphs = slab.batch[0]
-            if len(slab.batch) != 1 or n_keys % n_graphs:
-                raise ValueError(
-                    f"{n_keys} keys for a slab stacked {tuple(slab.batch)}: "
-                    f"expected one axis of graphs and a multiple of it")
-            graph_of = torch.arange(n_graphs, device=slab.device
-                                    ).repeat_interleave(n_keys // n_graphs)
-            copied = prep.member_copy_bytes()
+        graph_of, graph_rows, copied = layout(slab, n_keys, prep)
         chunk = members_per_call(slab, n_keys, member_bytes, copied)
+        # a batched block's sweep mask (ops/capture.py), chunked alike
+        mask = capture.sweeping_members(n_keys) if capture.active() \
+            else None
         parts = []
         for s in range(0, n_keys, chunk):
             init = None if init_labels is None else init_labels[s:s + chunk]
-            p = prep if graph_of is None else \
-                prep.members_of(graph_of[s:s + chunk])
-            parts.append(run(p, keys[s:s + chunk], init))
+            p = prep if graph_of is None else prep.members_of(
+                graph_of[s:s + chunk], graph_rows[s:s + chunk])
+            with capture.sweeping(None if mask is None
+                                  else mask[s:s + chunk]):
+                parts.append(run(p, keys[s:s + chunk], init))
         return torch.cat(parts, dim=0)
+
+    def chunk_of(slab: GraphSlab, n_members: int) -> int:
+        """The member chunk a call of ``n_members`` keys on ``slab`` runs
+        (a round block runs only where it is all of them)."""
+        _, _, copied = layout(slab, n_members, prepare(slab))
+        return members_per_call(slab, n_members, member_bytes, copied)
 
     detect.supports_init = True
     detect.supports_stack = True
     # the consensus driver sizes its persisted detect chunks with it
     detect.member_bytes = member_bytes
+    detect.chunk_of = chunk_of
     return detect

@@ -51,7 +51,17 @@ def leiden_members(prep: lv.Prepared, keys: torch.Tensor,
                    max_sweeps: int = 32, theta: float = 0.01
                    ) -> torch.Tensor:
     """Flat partitions ``[M, N]`` of M members; ``init_labels`` warm-starts
-    the first move phase (the later phases derive their own starts)."""
+    the first move phase (the later phases derive their own starts).
+
+    Capture-safe (``ops/capture.py``): every phase has static shapes and
+    reads nothing back under ``capture.active()``.  The three move
+    phases take ``local_move``'s masked loop; the masked refinement slab,
+    the aggregate (``louvain.aggregate``'s sorted runs), its compaction
+    (``compact_alive``: ranks and counts stay on the device), the label
+    compactions and the groups' start labels are data-independent in
+    shape, and the aggregate level sweeps on the matmul path (up to
+    ``MATMUL_MAX_N`` nodes), the hashed one above, or the exact
+    sorted-run one where a forced lowering cannot serve it."""
     slab = prep.slab
     n = slab.n_nodes
     gamma = prep.gamma
@@ -129,6 +139,13 @@ def make_leiden(max_sweeps: Optional[int] = None, gamma: float = 1.0,
                                 0.0)
     det.refresh_variant = detector(max_sweeps, 0.0)
     det.supports_align = True
+    # its rounds run capture-safe in the fused round blocks
+    # (engine.RoundsBlock, engine.BatchBlock): the cold detector in a run
+    # without warm start, the warm variant in one with it.  The refresh
+    # variant never enters a graph: a stagnation refresh re-detects from
+    # singletons, which a block leaves to a round run on its own
+    det.supports_block = True
+    det.warm_variant.supports_block = True
     return det
 
 

@@ -608,7 +608,12 @@ class Prepared:
         elif self.path == "hash":
             self.n_buckets = seg.hash_buckets_for(2 * _cap_hint(slab) + n)
 
-    def take(self, idx: torch.Tensor) -> "Prepared":
+    def take(self, idx: torch.Tensor,
+             host_idx: Optional[np.ndarray] = None) -> "Prepared":
+        """Members ``idx`` (a device index).  ``host_idx``, the same ids
+        on the host, picks the matmul rows ``w_rows`` with no host read
+        (:meth:`members_of` knows them from the stream's static layout);
+        without it they are read back from ``idx``."""
         if not self.batched:
             return self
         out = copy.copy(self)
@@ -617,22 +622,26 @@ class Prepared:
         if self.w_rows is None:
             out.W = _take(self.W, idx)
         else:
-            out.w_rows = self.w_rows[idx.cpu().numpy()]
+            out.w_rows = self.w_rows[
+                idx.cpu().numpy() if host_idx is None else host_idx]
         out.adj, out.hyb = _take(self.adj, idx), _take(self.hyb, idx)
         out.coin_rows = _take(self.coin_rows, idx)
         if self.fused is not None:
             out.fused = self.fused.take(idx)
         return out
 
-    def members_of(self, graph_of: torch.Tensor) -> "Prepared":
+    def members_of(self, graph_of: torch.Tensor,
+                   graph_rows: Optional[np.ndarray] = None) -> "Prepared":
         """Graph-stacked state handed to members ``graph_of[k]`` (a run
-        per graph).  The dense matrices ``W`` stay one per graph, read by
-        each member through ``w_rows``; the rest is copied per member
-        (:meth:`member_copy_bytes`), since the sweeps index it by member."""
+        per graph; ``graph_rows`` the same ids on the host, so that a
+        captured round reads nothing back).  The dense matrices ``W`` stay
+        one per graph, read by each member through ``w_rows``; the rest is
+        copied per member (:meth:`member_copy_bytes`), since the sweeps
+        index it by member."""
         shared = copy.copy(self)
         if self.W is not None:
             shared.w_rows = np.arange(self.W.shape[0])
-        return shared.take(graph_of)
+        return shared.take(graph_of, graph_rows)
 
     def member_copy_bytes(self) -> int:
         """Bytes :meth:`members_of` copies for each member."""
@@ -710,7 +719,11 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
         # every member sweeps and keeps its labels once it has stopped:
         # a member's sweep reads only its own key and rows, so this is
         # the subset loop below bit for bit, with no host read; a sweep
-        # with no member left runs only off the card's graphs
+        # with no member left runs only off the card's graphs.  Members
+        # a batched block leaves out (capture.sweeping) start stopped
+        mask = capture.sweeping_members(m)
+        if mask is not None:
+            n_want = torch.where(mask, n_want, 0)
         for it in range(max_sweeps):
             act = n_want >= stop_at
 

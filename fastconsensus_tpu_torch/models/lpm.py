@@ -86,9 +86,11 @@ class Prepared:
             out.adj = da.DenseAdj(*(t[idx] for t in self.adj))
         return out
 
-    # a graph-stacked slab's members: the vote indexes the slots and rows
-    # by member, so each member gets a copy of its graph's
-    members_of = take
+    def members_of(self, graph_of: torch.Tensor, graph_rows=None
+                   ) -> "Prepared":
+        """A graph-stacked slab's members: the vote indexes the slots and
+        rows by member, so each member gets a copy of its graph's."""
+        return self.take(graph_of)
 
     def member_copy_bytes(self) -> int:
         s = self.slab
@@ -116,7 +118,12 @@ def lpm_members(prep: Prepared, keys: torch.Tensor,
     n_want = torch.ones(m, dtype=torch.int64, device=dev)
     if capture.active():
         # every member votes and keeps its labels once it has stopped
-        # (as louvain.local_move's capture-safe loop): no host read
+        # (as louvain.local_move's capture-safe loop): no host read.
+        # Members a batched block leaves out (capture.sweeping) start
+        # stopped
+        mask = capture.sweeping_members(m)
+        if mask is not None:
+            n_want = torch.where(mask, n_want, 0)
         for it in range(max_iters):
             act = n_want > 0
 

@@ -15,6 +15,12 @@ that needs:
   where a bool on the device holds.  Anywhere else (the CPU, or the card
   outside a capture) the body always runs and its results are selected
   under the bool, with no host read either way;
+* :func:`sweeping` and :func:`sweeping_members`: the members of a
+  batched block's stacked detection whose sweeps run.  The batched block
+  (``engine.BatchBlock``) detects every job's members at the stream's
+  static shape; a frozen job's members start stopped, so they keep their
+  start labels and add no sweep, and the block launches what one batched
+  round a host step launches;
 * :class:`CapturedStep`: one capture of a function into a
   ``torch.cuda.CUDAGraph``.  The IF nodes' bodies are captured from
   streams of their own, so their temporaries come from a second memory
@@ -62,6 +68,28 @@ def capture_safe():
         yield
     finally:
         _local.safe -= 1
+
+
+@contextlib.contextmanager
+def sweeping(mask):
+    """Within the enclosed detection, sweep only the members ``mask``
+    (bool[M] on the device, None: every member) names."""
+    prev = getattr(_local, "members", None)
+    _local.members = mask
+    try:
+        yield
+    finally:
+        _local.members = prev
+
+
+def sweeping_members(m: int):
+    """The mask :func:`sweeping` set for a detection of ``m`` members, or
+    None (every member sweeps)."""
+    mask = getattr(_local, "members", None)
+    if mask is not None and mask.shape != (m,):
+        raise ValueError(f"a sweep mask of shape {tuple(mask.shape)} for "
+                         f"{m} members")
+    return mask
 
 
 def _capturing(t: torch.Tensor) -> bool:

@@ -174,6 +174,238 @@ def test_block_without_warm_start_matches_per_round(monkeypatch):
     _assert_identical(fused, single)
 
 
+@pytest.mark.parametrize("graph", ["karate", "hybrid"])
+def test_block_matches_per_round_leiden(monkeypatch, graph):
+    """Leiden's warm variant in the block: karate on the matmul sweep, a
+    forced-hybrid planted graph (row_totals rows in the move phase and
+    the refinement, the hashed aggregate level)."""
+    if graph == "karate":
+        edges, n = _karate()
+        cfg = dict(n_p=4, tau=0.2, delta=0.02, max_rounds=4, seed=2)
+    else:
+        monkeypatch.setenv("FCTPU_MOVE_PATH", "hybrid")
+        edges, n = _hybrid_graph(600)
+        cfg = dict(n_p=3, tau=0.2, delta=0.02, max_rounds=3, seed=1,
+                   closure_tau=0.2)
+    slab = pack_edges(edges, n, device="cpu")
+    fused, blocks = _port(monkeypatch, 8, slab, "leiden", cfg)
+    single, none = _port(monkeypatch, 1, slab, "leiden", cfg)
+    assert blocks > 0 and none == 0 and fused.rounds >= 2
+    _assert_identical(fused, single)
+
+
+def test_leiden_variants_block_and_refresh_stays_out():
+    """Leiden carries ``supports_block`` on the detector and its warm
+    variant; the refresh variant (a re-detection from singletons) never
+    runs in a block."""
+    det = get_detector("leiden")
+    assert det.supports_block and det.warm_variant.supports_block
+    assert not getattr(det.refresh_variant, "supports_block", False)
+
+
+# -- the batched block ---------------------------------------------------
+
+
+def _ring(n, chords, shift):
+    idx = np.arange(n)
+    c = np.arange(chords)
+    return np.concatenate([np.stack([idx, (idx + 1) % n], 1),
+                           np.stack([c % n, (c + shift) % n], 1)])
+
+
+_RINGS = [(_ring(34, 40, 7), 34), (_ring(40, 38, 5), 40),
+          (_ring(33, 52, 13), 33), (_ring(36, 44, 11), 36)]
+
+
+def _bucket_jobs(k=4):
+    """Up to four distinct graphs of one bucket (n64_e96)."""
+    from fastconsensus_tpu_torch.serve import bucketer
+
+    graphs = _RINGS[:k]
+    padded = [bucketer.pad_to_bucket(e, n, device="cpu") for e, n in graphs]
+    return [s for s, _ in padded], padded[0][1].n_closure
+
+
+def _batch_runs(monkeypatch, block, slabs, alg, cfg, n_closure, seeds):
+    """The port's batch at FCTPU_ROUNDS_BLOCK=block and the batched
+    blocks it ran."""
+    from fastconsensus_tpu_torch import engine
+    from fastconsensus_tpu_torch.consensus import run_consensus_batch
+
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", str(block))
+    calls = []
+    run = engine.BatchBlock.run
+
+    def counted(self, *a, **k):
+        calls.append(a[4])
+        return run(self, *a, **k)
+
+    monkeypatch.setattr(engine.BatchBlock, "run", counted)
+    res = run_consensus_batch(slabs, get_detector(alg), ConsensusConfig(
+        algorithm=alg, **cfg), n_closure=n_closure, seeds=seeds)
+    monkeypatch.setattr(engine.BatchBlock, "run", run)
+    return res, calls
+
+
+def _starved_jobs(kind):
+    """Four bucket jobs, one of which saturates its slab (``grow``) or
+    re-derives its budgets (``budget``) within a few rounds."""
+    if kind == "grow":
+        # at 124 slots only the fourth job's closure overflows
+        slabs = []
+        for e, _ in _RINGS:
+            t = pack_edges(e, 40, capacity=124, device="cpu")
+            slabs.append(dataclasses.replace(t, d_cap=0, d_hyb=0,
+                                             hub_cap=0, cap_hint=124,
+                                             agg_cap=8192))
+        return slabs, 96
+    slabs, nc = _bucket_jobs()
+    # at agg_cap 76 the budgets fire for jobs whose alive edges pass 95
+    return [dataclasses.replace(s, agg_cap=76) for s in slabs], nc
+
+
+@pytest.mark.parametrize("case", ["warm", "scratch", "leiden", "lpm",
+                                  "grow_split", "budget_split"])
+def test_batch_block_matches_per_round_and_solo(monkeypatch, case):
+    """The blocked batch equals one batched round a host step and each
+    job's solo run: partitions, rounds, history, slab and splits.  Warm:
+    stagnation refreshes (a masked round between blocks, which ends a
+    block for every job) and convergence mid-block; scratch: warm start
+    off; a job that saturates its slab, and jobs whose budgets are
+    re-derived, split off to solo runs after their block."""
+    alg = case if case in ("leiden", "lpm") else "louvain"
+    seeds = [11, 22, 33, 44]
+    cfg = dict(n_p=4, tau=0.2, delta=0.02, max_rounds=10, seed=0)
+    slabs, nc = _bucket_jobs()
+    if case == "scratch":
+        cfg.update(max_rounds=3, warm_start=False)
+    elif case == "lpm":
+        slabs, seeds = slabs[:2], seeds[:2]
+        cfg.update(n_p=3, max_rounds=4)
+    elif case.endswith("_split"):
+        slabs, nc = _starved_jobs(case.split("_")[0])
+        seeds = [1, 2, 3, 4] if case == "grow_split" else seeds
+        cfg.update(max_rounds=4 if case == "grow_split" else 6)
+    blocked, calls = _batch_runs(monkeypatch, 8, slabs, alg, cfg, nc, seeds)
+    single, none = _batch_runs(monkeypatch, 1, slabs, alg, cfg, nc, seeds)
+    assert calls and not none
+    assert blocked.splits == single.splits
+    if case == "grow_split":
+        assert list(blocked.splits) == [3]
+        assert blocked.splits[3].startswith("slab saturated at round")
+    if case == "budget_split":
+        assert sorted(blocked.splits) == [1, 3]
+    if case == "warm":
+        assert any(h["cold"] for r in blocked for h in r.history[1:]), \
+            "no stagnation refresh"
+        # a job converged inside a block while another went on
+        assert len({r.rounds for r in blocked}) > 1
+    for i, (a, b) in enumerate(zip(blocked, single)):
+        _assert_identical(a, b)
+        solo = run_consensus(slabs[i], get_detector(alg), ConsensusConfig(
+            algorithm=alg, **cfg), key=prng.key(seeds[i], "cpu"),
+            n_closure=nc)
+        _assert_identical(a, solo)
+
+
+@pytest.mark.parametrize("setting,cpu,cuda", [
+    (None, 1, 1), ("1", 1, 1), ("4", 4, 4), ("20", 8, 8), ("auto", 1, 8)])
+def test_batch_block_size_setting(monkeypatch, setting, cpu, cuda):
+    """The batch reads FCTPU_ROUNDS_BLOCK as the solo driver does;
+    ``auto`` is the reference's batch default of 8 on the card."""
+    from fastconsensus_tpu_torch.consensus import batch_block_size
+
+    if setting is None:
+        monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", setting)
+    assert batch_block_size(torch.device("cpu")) == cpu
+    assert batch_block_size(torch.device("cuda")) == cuda
+
+
+def test_consensus_batch_block_one_round_equals_batch_round():
+    """One round of ``engine.consensus_batch_block`` is
+    ``consensus_batch_round`` at the same keys: slabs, labels and every
+    stats field."""
+    from fastconsensus_tpu_torch import policy
+    from fastconsensus_tpu_torch.engine import (consensus_batch_block,
+                                                consensus_batch_round,
+                                                stats_to_host)
+
+    slabs, nc = _bucket_jobs(2)
+    slabs = [s.with_weights(torch.where(s.alive, 1.0, 0.0)) for s in slabs]
+    n_p, det = 3, get_detector("louvain").warm_variant
+    keys = [prng.key(s, "cpu") for s in (5, 6)]
+    labels = [torch.arange(slabs[0].n_nodes).expand(n_p, -1)] * 2
+    got = consensus_batch_block(slabs, keys, labels, [1, 1], [1, 1],
+                                [False, False], [policy.INITIAL] * 2, True,
+                                [(-1, -1, -1)] * 2, det, n_p, 0.2, 0.02, nc,
+                                warm=True)
+    want = consensus_batch_round(
+        slabs, [prng.stream(k, prng.STREAM_ROUND, 1) for k in keys], det,
+        n_p, 0.2, 0.02, nc, labels, [False, False], labels)
+    assert got.done == [1, 1] and got.grow == [False, False]
+    for j, (slab, lab, st) in enumerate(want):
+        for f in ("src", "dst", "weight", "alive"):
+            assert torch.equal(getattr(got.slabs[j], f), getattr(slab, f))
+        assert torch.equal(got.labels[j], lab)
+        host = stats_to_host([st])[0]._replace(cold=False)
+        for a, b in zip(got.stats[j][0], host):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_batch_in_member_chunks_runs_no_block(monkeypatch):
+    """A stacked stream in more than one member chunk takes no batched
+    block (the solo driver's rule), and gives the same results."""
+    slabs, nc = _bucket_jobs(2)
+    cfg = dict(n_p=3, tau=0.2, delta=0.02, max_rounds=3, seed=0)
+    want, calls = _batch_runs(monkeypatch, 8, slabs, "louvain", cfg, nc,
+                              [1, 2])
+    monkeypatch.setenv("FCTPU_ENSEMBLE_CHUNK", "2")
+    got, none = _batch_runs(monkeypatch, 8, slabs, "louvain", cfg, nc,
+                            [1, 2])
+    assert calls and not none
+    for a, b in zip(got, want):
+        _assert_identical(a, b)
+
+
+def test_stack_slabs_into_static_buffers():
+    """``stack_slabs(out=)`` writes into a block's buffers in place (the
+    addresses a captured graph reads) and refuses other statics;
+    ``unstack_slab(copy=True)`` outlives the next write."""
+    from fastconsensus_tpu_torch.graph import stack_slabs, unstack_slab
+
+    slabs, _ = _bucket_jobs(3)
+    buf = stack_slabs(slabs)
+    ptrs = [getattr(buf, f).data_ptr() for f in ("src", "dst", "weight",
+                                                  "alive")]
+    kept = unstack_slab(buf, 0, copy=True)
+    view = unstack_slab(buf, 0)
+    out = stack_slabs(slabs[::-1], out=buf)
+    assert out is buf and ptrs == [getattr(buf, f).data_ptr() for f in
+                                   ("src", "dst", "weight", "alive")]
+    for f in ("src", "dst", "weight", "alive"):
+        assert torch.equal(getattr(kept, f), getattr(slabs[0], f))
+        assert torch.equal(getattr(view, f), getattr(slabs[2], f))
+    with pytest.raises(ValueError, match="cannot stack"):
+        stack_slabs(slabs[:2], out=buf)
+
+
+def test_stacked_members_take_their_rows_with_no_host_read(monkeypatch):
+    """``members_of`` with the graphs' host ids picks the matmul rows
+    with no read back, the same rows as the read-back form."""
+    from fastconsensus_tpu_torch.graph import stack_slabs
+    from fastconsensus_tpu_torch.models.louvain import Prepared
+
+    prep = Prepared(stack_slabs(_bucket_jobs(3)[0]))
+    graph_of = torch.arange(3).repeat_interleave(2)
+    want = prep.members_of(graph_of).w_rows
+    _refuse_host_reads(monkeypatch)
+    got = prep.members_of(graph_of, np.repeat(np.arange(3), 2)).w_rows
+    monkeypatch.undo()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("setting,cpu,cuda", [
     (None, 1, 1), ("1", 1, 1), ("8", 8, 8), ("20", 8, 8), ("0", 1, 1),
     ("auto", 1, None), (" AUTO ", 1, None)])
@@ -290,10 +522,66 @@ class _NoHostRead(torch.utils._python_dispatch.TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _refuse_host_reads(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("host read in a capture-safe round")
+
+    for name in ("item", "__bool__", "tolist", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "nonzero", refuse)
+
+
+def _stacked_round_makes_no_host_read(monkeypatch):
+    """One guarded round of a batched block (three karate-bucket jobs,
+    Louvain's warm variant on the matmul sweep) with every host read
+    refused, against the same round run unrefused."""
+    from fastconsensus_tpu_torch import policy
+    from fastconsensus_tpu_torch.engine import BatchBlock
+    from fastconsensus_tpu_torch.serve import bucketer
+
+    edges, n = _karate()
+    graphs = [(edges, n), (edges[1:], n), (edges[:-3], n)]
+    padded = [bucketer.pad_to_bucket(e, k, device="cpu") for e, k in graphs]
+    slabs = [s.with_weights(torch.where(s.alive, 1.0, 0.0))
+             for s, _ in padded]
+    n_p, b = 4, len(slabs)
+    det = get_detector("louvain").warm_variant
+    labels = [torch.arange(slabs[0].n_nodes).expand(n_p, -1)] * b
+    keys = [prng.key(s, "cpu") for s in (3, 4, 5)]
+    args = (slabs, keys, labels, [2, 2, 2], [1, 1, 0], [True, False, True],
+            [policy.INITIAL] * b, True, [(-1, -1, -1)] * b)
+
+    def block():
+        return BatchBlock(slabs[0], b, det, n_p, 0.2, 0.02,
+                          padded[0][1].n_closure, warm=True, align_frac=1.0)
+
+    want = block()
+    want.load(*args)
+    with capture.capture_safe():
+        want._step()
+    got = block()
+    got.load(*args)
+    _refuse_host_reads(monkeypatch)
+    with _NoHostRead(), capture.capture_safe():
+        got._step()
+    monkeypatch.undo()
+    assert got.i.tolist() == [1, 1, 0]
+    for x, y in zip(got._state() + list(got.tmp),
+                    want._state() + list(want.tmp)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("alg,path", [("louvain", "matmul"),
                                       ("louvain", "hybrid"),
-                                      ("lpm", "dense")])
+                                      ("lpm", "dense"),
+                                      ("leiden", "matmul"),
+                                      ("leiden", "hybrid"),
+                                      ("louvain", "matmul-stacked")])
 def test_capture_safe_round_makes_no_host_read(monkeypatch, alg, path):
+    if path.endswith("-stacked"):
+        monkeypatch.setenv("FCTPU_MOVE_PATH", path.split("-")[0])
+        _stacked_round_makes_no_host_read(monkeypatch)
+        return
     monkeypatch.setenv("FCTPU_MOVE_PATH", path)
     if path == "hybrid":
         edges, n = _hybrid_graph(600)
@@ -318,13 +606,7 @@ def test_capture_safe_round_makes_no_host_read(monkeypatch, alg, path):
 
     n_closure = int(slab.num_alive()) // 4
     want = one_round()   # first use: lazy imports and caches
-
-    def refuse(*a, **k):
-        raise AssertionError("host read in a capture-safe round")
-
-    for name in ("item", "__bool__", "tolist", "cpu", "numpy"):
-        monkeypatch.setattr(torch.Tensor, name, refuse)
-    monkeypatch.setattr(torch, "nonzero", refuse)
+    _refuse_host_reads(monkeypatch)
     with _NoHostRead(), capture.capture_safe():
         got = consensus_round(slab, key, det, n_p, 0.2, 0.02, n_closure,
                               init_labels=labels, align=align,

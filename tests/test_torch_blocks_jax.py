@@ -110,13 +110,26 @@ def _hybrid_graph(n):
 
 
 @pytest.mark.parametrize("case", ["karate_louvain", "hybrid_louvain",
-                                  "planted_lpm"])
+                                  "planted_lpm", "karate_leiden",
+                                  "hybrid_leiden"])
 def test_block_matches_jax_block(monkeypatch, case):
+    """The port's block against the JAX package's fused run; Leiden's on
+    karate (matmul sweeps) and on forced hybrid rows (its refinement
+    through row_totals rows, the aggregate level hashed), where the JAX
+    package fuses every detector whose round is one call."""
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "8")
     monkeypatch.setenv("FCTPU_DETECT_CALL_MEMBERS", "0")
     if case == "karate_louvain":
         (edges, n), alg = _karate(), "louvain"
         cfg = dict(n_p=6, tau=0.2, delta=0.02, max_rounds=4, seed=2)
+    elif case == "karate_leiden":
+        (edges, n), alg = _karate(), "leiden"
+        cfg = dict(n_p=4, tau=0.2, delta=0.0, max_rounds=4, seed=2)
+    elif case == "hybrid_leiden":
+        monkeypatch.setenv("FCTPU_MOVE_PATH", "hybrid")
+        (edges, n), alg = _hybrid_graph(600), "leiden"
+        cfg = dict(n_p=3, tau=0.2, delta=0.02, max_rounds=3, seed=1,
+                   closure_tau=0.2)
     elif case == "hybrid_louvain":
         monkeypatch.setenv("FCTPU_MOVE_PATH", "hybrid")
         (edges, n), alg = _hybrid_graph(600), "louvain"
@@ -144,6 +157,60 @@ def test_block_matches_jax_block(monkeypatch, case):
                          ConsensusConfig(algorithm=alg, **cfg))
     assert _blocks_run(treg) > t0
     _compare_to_jax(jres, tres)
+
+
+def _ring(n, chords, shift):
+    idx = np.arange(n)
+    c = np.arange(chords)
+    return np.concatenate([np.stack([idx, (idx + 1) % n], 1),
+                           np.stack([c % n, (c + shift) % n], 1)])
+
+
+@pytest.mark.parametrize("alg", ["louvain", "lpm", "leiden"])
+@pytest.mark.parametrize("mode", ["warm", "scratch"])
+def test_batch_block_matches_jax_batch(monkeypatch, alg, mode):
+    """The port's blocked ``run_consensus_batch`` against the JAX
+    package's (which blocks at 8 by default) on three seeded graphs of
+    one bucket, n_p 3, and against the port's one batched round a host
+    step: partitions, rounds, convergence, splits and the integer
+    history exactly, the float round metrics at rtol 1e-5."""
+    from fastconsensus_tpu.consensus import run_consensus_batch as jbatch
+    from fastconsensus_tpu.serve import bucketer as jb
+    from fastconsensus_tpu_torch import engine
+    from fastconsensus_tpu_torch.consensus import run_consensus_batch
+    from fastconsensus_tpu_torch.serve import bucketer as tb
+
+    monkeypatch.setenv("FCTPU_DETECT_CALL_MEMBERS", "0")
+    graphs = [(_ring(34, 40, 7), 34), (_ring(40, 38, 5), 40),
+              (_ring(36, 44, 11), 36)]
+    seeds = [11, 22, 33]
+    cfg = dict(algorithm=alg, n_p=3, tau=0.2, delta=0.02,
+               max_rounds=4 if mode == "warm" else 3, seed=0,
+               warm_start=mode == "warm")
+    padded = [tb.pad_to_bucket(e, n, device="cpu") for e, n in graphs]
+    slabs, nc = [s for s, _ in padded], padded[0][1].n_closure
+    jres = jbatch([jb.pad_to_bucket(e, n)[0] for e, n in graphs],
+                  jdetector(alg), JConfig(**cfg), n_closure=nc, seeds=seeds)
+    runs, calls = {}, []
+    run = engine.BatchBlock.run
+
+    def counted(self, *a, **k):
+        calls.append(a)
+        return run(self, *a, **k)
+
+    monkeypatch.setattr(engine.BatchBlock, "run", counted)
+    for block in (8, 1):
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", str(block))
+        n_calls = len(calls)
+        runs[block] = run_consensus_batch(
+            slabs, get_detector(alg), ConsensusConfig(**cfg), n_closure=nc,
+            seeds=seeds)
+        assert (len(calls) > n_calls) == (block == 8)
+    tres = runs[8]
+    assert tres.splits == {} and len(jres) == len(tres)
+    for t, j, one in zip(tres, jres, runs[1]):
+        _compare_to_jax(j, t)
+        _assert_identical(t, one)
 
 
 def test_block_growth_inside_a_block_against_jax(monkeypatch):

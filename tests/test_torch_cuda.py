@@ -787,3 +787,69 @@ def test_fused_block_on_card_equals_eager_rounds(card, monkeypatch, alg,
             "capacity", "labels_changed", "cold")
     assert [[h[k] for k in ints] for h in fused.history] == \
         [[h[k] for k in ints] for h in cpu.history]
+
+
+@pytest.mark.parametrize("alg", ["louvain", "leiden"])
+def test_batch_block_on_card_equals_batched_rounds(card, monkeypatch, alg):
+    """The batched block (one graph captured for the run) against one
+    batched round a host step on the card, exactly, splits included,
+    and against the blocked batch on the CPU (partitions and integer
+    history); row_totals launched at the same widths as many times."""
+    import dataclasses
+
+    from fastconsensus_tpu_torch import engine
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus_batch)
+    from fastconsensus_tpu_torch.graph import (derive_agg_sizing,
+                                               hub_cap_for, pack_edges)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.utils.synth import planted_partition
+
+    packs = [pack_edges(planted_partition(1500, 10, 0.03, 0.002, seed=s)[0],
+                        1500, device="cpu") for s in (4, 5, 6)]
+    cap = 3 * max(int(p.num_alive()) for p in packs)
+    statics = dict(d_cap=0, cap_hint=cap, d_hyb=max(p.d_hyb for p in packs),
+                   hub_cap=hub_cap_for(2 * cap),
+                   agg_cap=derive_agg_sizing(cap))
+
+    def slabs(dev):
+        return [dataclasses.replace(p, **{f: torch.cat([
+            getattr(p, f), getattr(p, f).new_zeros(cap - p.capacity)]).to(
+                dev) for f in ("src", "dst", "weight", "alive")}, **statics)
+            for p in packs]
+
+    monkeypatch.setenv("FCTPU_MOVE_PATH", "hybrid")
+    cfg = ConsensusConfig(algorithm=alg, n_p=4, max_rounds=4, delta=0.0)
+    captures = []
+    capture = engine.BatchBlock._capture
+
+    def counted(self):
+        captures.append(self)
+        capture(self)
+
+    monkeypatch.setattr(engine.BatchBlock, "_capture", counted)
+    runs, widths = {}, {}
+    for dev, block in ((card, "8"), (card, "1"), ("cpu", "8")):
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", block)
+        rk.reset_launches()
+        runs[(str(dev), block)] = run_consensus_batch(
+            slabs(dev), get_detector(alg), cfg,
+            n_closure=max(int(p.num_alive()) for p in packs),
+            seeds=[1, 2, 3])
+        widths[(str(dev), block)] = {
+            d: sum(c for (_, dd), c in rk.ROW_TOTALS_SHAPES.items()
+                   if dd == d) for (_, d) in rk.ROW_TOTALS_SHAPES}
+    fused, single, cpu = (runs[(str(card), "8")], runs[(str(card), "1")],
+                          runs[("cpu", "8")])
+    assert len(captures) == 1
+    assert fused.splits == single.splits == cpu.splits
+    for a, b, c in zip(fused, single, cpu):
+        assert a.history == b.history
+        np.testing.assert_array_equal(np.stack(a.partitions),
+                                      np.stack(b.partitions))
+        np.testing.assert_array_equal(np.stack(a.partitions),
+                                      np.stack(c.partitions))
+        for f in ("src", "dst", "weight", "alive"):
+            assert torch.equal(getattr(a.graph, f), getattr(b.graph, f))
+    assert widths[(str(card), "8")] == widths[(str(card), "1")]
+    assert sum(widths[(str(card), "8")].values()) > 0
