@@ -37,33 +37,41 @@ Phases (any failure exits non-zero without the final line):
              shapes are the stream's rows).  Solo runs (engine.
              RoundsBlock: one round captured into a CUDA graph, replayed
              round after round, one stats readback a block): lfr10k
-             (louvain, n_p 20, tau 0.2, delta 0.02, seed 0, at most 16
-             rounds: hybrid rows through row_totals), the emailEu
+             (louvain, n_p 20, tau 0.2, delta 0.02, seed 0, at most 8
+             rounds, cut from 16 to fit the time limit: hybrid rows
+             through row_totals), the emailEu
              stand-in (lpm_emaileu's settings), karate (louvain, n_p 20,
              the matmul sweep), fused's planted 5k graph (FCTPU_FUSED=1,
              4 rounds: fused_move_rows in the graph) and Leiden on
              karate, the emailEu stand-in (n_p 20) and the planted 5k
              graph on forced hybrid rows (n_p 8; each at delta 0, at
-             most 6 rounds).  Batches (run_consensus_batch through
+             most 6 rounds), and the host C++ detectors CNM and Infomap
+             on the emailEu stand-in (n_p 8, delta 0, at most 6 rounds;
+             the C++ a host node of the captured round, one run a round
+             that detects).  Batches (run_consensus_batch through
              engine.BatchBlock, one graph captured a run): batch A (four
              emailEu stand-ins, B 4, the matmul sweep), four seeded
              planted 5k graphs on forced hybrid rows with Louvain and
              with Leiden (n_p 8, delta 0, 6 rounds), and batch B
              (lfr10k and three children: the hash sweep, every job split
              off to a solo run at its saturating round); A and B at
-             phase batch's settings cut to 6 rounds, and
+             phase batch's settings (at most 6 rounds); CNM over batch A
+             (n_p 8, delta 0, 3 rounds: one host-node run a batched
+             round, for every job it runs), and
              FCTPU_ENSEMBLE_BUDGET_MB=24576 where a stream would take
-             more than one member chunk.  Karate's block on the card
-             against its block on the CPU (partitions, slab, integer
-             history); per run the wall, rounds, blocks, captures and
-             their seconds, batch.blocks and the batched blocks, host
+             more than one member chunk.  Karate's and CNM's blocks on
+             the card against their blocks on the CPU (partitions, slab,
+             integer history); per run the wall, rounds, blocks, captures
+             and their seconds, host-node runs, batch.blocks and the
+             batched blocks, host
              syncs by tag, the device's busy share (nvidia-smi's
              utilization.gpu sampled every 50 ms) and the peak memory
              allocated and reserved
 7. lfr100k   the planted100k stress configuration of bench.py on
              bench_data/lfr100k.npz: louvain, n_p=200, tau=0.2,
-             delta=0.02, closure_tau=0.2, at 6 rounds (bench.py runs
-             8: cut to make room for phase blocks); afterwards
+             delta=0.02, closure_tau=0.2, at 3 rounds (bench.py runs
+             8: cut to keep the release check within its time limit;
+             rounds 2 and 3 re-derive the budgets); afterwards
              row_totals at every shape the run launched it at, checked
              as in phase 2 and timed, and the device memory of one group
              of the scatter wedge sampler at its element cap, on the
@@ -94,8 +102,10 @@ Phases (any failure exits non-zero without the final line):
              two or more cards, one rank per card over NCCL instead
 10. leiden_lfr10k  bench.py's lfr10k configuration on
              bench_data/lfr10k.npz: leiden, n_p=100, tau=0.2, delta=0.02,
-             max_rounds=16 (--leiden-rounds), closure_tau=0.2; per-round
-             peak memory and n_agg_overflow; row_totals per shape as in 7
+             max_rounds=6 (--leiden-rounds; bench.py's 16, cut to fit
+             the time limit; round 5 grows the slab), closure_tau=0.2;
+             per-round peak memory and n_agg_overflow; row_totals per
+             shape as in 7
 11. lpm_emaileu  bench.py's emailEu stand-in (planted, n 1,005, 42 blocks of
              size_alpha 0.85, p_in 0.6, p_out 0.02, seed 42): lpm, n_p=50,
              tau=0.8, delta=0.02; the dense vote's rows are 177 slots, the
@@ -140,7 +150,8 @@ Phases (any failure exits non-zero without the final line):
              parent labels; row_totals per shape as in 7
 18. batch    run_consensus_batch on two batches of B=4 same-bucket jobs
              (louvain, n_p=20, tau=0.2, delta=0.02, closure_tau=0.2, seeds
-             11/22/33/44, at most 16 rounds): A, four emailEu stand-ins
+             11/22/33/44, at most 6 rounds, cut from 16 to fit the time
+             limit): A, four emailEu stand-ins
              (graph seeds 42-45, the matmul sweep); B, lfr10k and three
              children of seeded 2% edge deltas (the hash sweep); each job
              equal to its solo run on the card; the bucket, batch wall,
@@ -229,9 +240,17 @@ Phases (any failure exits non-zero without the final line):
              bucket solo (detect, tail, one round; n_p 20) and lfr100k's
              (detect, one chunk of 8 members, 4 sweeps), both on hybrid
              rows re-derived from the degrees as a served run re-derives
-             them; max_memory_reserved printed; the serve defaults'
+             them; max_memory_reserved printed.  F5, a block's graph
+             pools: one RoundsBlock (lfr10k's bucket, block 8, one
+             capture) and one BatchBlock (batch A, B 4, block 8), each
+             from an emptied cache and followed, while its pools are
+             held, by one eager round: the blocked model (eager cache,
+             graph pool, body pool) within [1, 2]x of
+             max_memory_reserved over the baseline, the reserved bytes
+             printed by pool and stream.  The serve defaults'
              chip ceilings at the card's memory and at a budget that
-             fits lfr10k's bucket and not lfr100k's; the server's
+             fits lfr10k's bucket and not lfr100k's, unblocked and at
+             FCTPU_ROUNDS_BLOCK=8 (never higher); the server's
              --chip-max-edges auto (covering the whole ladder at the
              card's memory: exit 2, as the reference's) and an
              over-ceiling explicit --chip-max-edges (exit 2), in
@@ -478,26 +497,35 @@ def check_and_time_shapes(shapes, seed: int):
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from fastconsensus_tpu_torch import native
     from fastconsensus_tpu_torch.ops import row_kernels as rk
     from fastconsensus_tpu_torch.utils import io
 
-    t0 = time.perf_counter()
-    info = rk.build()
-    state["build_s"] = time.perf_counter() - t0
+    def load_native():
+        t0 = time.perf_counter()
+        native.load()
+        return time.perf_counter() - t0
+
+    # the host C++ (CNM, Infomap, the edgelist parser) compiles beside
+    # the kernels' nvcc processes
+    with ThreadPoolExecutor(1) as pool:
+        cxx = pool.submit(load_native)
+        t0 = time.perf_counter()
+        info = rk.build()
+        state["build_s"] = time.perf_counter() - t0
+        cxx_s = cxx.result()
     for name, rec in info.items():
         ptx = " | ".join(line.strip() for line in rec["ptxas"].splitlines()
                          if "registers" in line or "spill" in line)
         log(f"build {name}: {rec['seconds']:.2f}s cached={rec['cached']} "
             f"{ptx}")
     log(f"build: {state['build_s']:.2f}s for {len(info)} kernels")
-    # the host C++ (CNM, Infomap, the edgelist parser), and the two
-    # edgelist readers on the largest graph the phases read, as text
-    t0 = time.perf_counter()
-    native.load()
-    cxx_s = time.perf_counter() - t0
+    # the two edgelist readers on the largest graph the phases read, as
+    # text
     path = _write_edgelist(np.load(ROOT / "bench_data" / "lfr100k.npz")
                            ["edges"], OUT / "lfr100k.txt")
     t0 = time.perf_counter()
@@ -508,7 +536,8 @@ def phase_build(state):
     slow_s = time.perf_counter() - t0
     check(all(np.array_equal(a, b) for a, b in zip(fast, slow)
               if b is not None), "edgelist readers disagree")
-    log(f"build: host C++ {cxx_s:.2f}s ({native.lib_path().name}); "
+    log(f"build: host C++ {cxx_s:.2f}s beside the kernels "
+        f"({native.lib_path().name}); "
         f"lfr100k as text ({path.stat().st_size} bytes, "
         f"{fast[0].shape[0]} edges): native reader {fast_s:.4f}s, Python "
         f"reader {slow_s:.4f}s, equal; host cores {os.cpu_count()}")
@@ -769,6 +798,8 @@ def phase_fused(state):
 # exceeds the default 2048 MiB: a block runs only where the whole stream
 # is one member chunk, so these cases widen it (both block sizes alike)
 BLOCK_BUDGET = {"FCTPU_ENSEMBLE_BUDGET_MB": "24576"}
+# The detectors that run as host C++ (a host node in a captured block).
+HOST_ALGS = ("cnm", "infomap")
 
 
 def _block_cases(state):
@@ -788,7 +819,7 @@ def _block_cases(state):
     return [
         ("lfr10k", data["edges"], int(data["labels"].shape[0]), "louvain",
          {}, dict(n_p=state.get("blocks_n_p", 20), tau=0.2, delta=0.02,
-                  seed=0, max_rounds=16)),
+                  seed=0, max_rounds=8)),
         ("emailEu stand-in", email, n_email, "lpm", {}, email_cfg),
         ("karate", k_edges, len(k_ids), "louvain", {},
          dict(n_p=20, tau=0.2, delta=0.02, seed=0)),
@@ -804,7 +835,13 @@ def _block_cases(state):
                                   seed=0, max_rounds=6, closure_tau=0.2)),
         ("leiden 5k planted, hybrid", p_edges, 5000, "leiden",
          {"FCTPU_MOVE_PATH": "hybrid"},
-         dict(n_p=8, tau=0.2, delta=0.0, max_rounds=6, seed=2))]
+         dict(n_p=8, tau=0.2, delta=0.0, max_rounds=6, seed=2)),
+        # the host C++ detectors: the block's host node runs the C++ at
+        # each round (cnm_emaileu's and infomap_lfr10k's tau, delta 0)
+        ("cnm emailEu stand-in", email, n_email, "cnm", {},
+         dict(n_p=8, tau=0.7, delta=0.0, seed=0, max_rounds=6)),
+        ("infomap emailEu stand-in", email, n_email, "infomap", {},
+         dict(n_p=8, tau=0.6, delta=0.0, seed=0, max_rounds=6))]
 
 
 def _planted_batch(device, n: int = 5000, n_comm: int = 50,
@@ -852,11 +889,13 @@ def _batch_block_cases(state):
     hybrid = dict(BLOCK_BUDGET, FCTPU_MOVE_PATH="hybrid")
     planted_cfg = dict(n_p=state.get("blocks_batch_n_p", 8), tau=0.2,
                        delta=0.0, max_rounds=6)
+    cnm_cfg = dict(n_p=8, tau=0.7, delta=0.0, max_rounds=3)
     for name, alg, env, run_cfg in (
             ("batch A", "louvain", dict(BLOCK_BUDGET), cfg),
             ("planted batch", "louvain", hybrid, planted_cfg),
             ("planted batch", "leiden", hybrid, planted_cfg),
-            ("batch B", "louvain", dict(BLOCK_BUDGET), cfg)):
+            ("batch B", "louvain", dict(BLOCK_BUDGET), cfg),
+            ("batch A", "cnm", {}, cnm_cfg)):
         if name.startswith("planted"):
             slabs, n_closure = _planted_batch(DEVICE)
         else:
@@ -938,6 +977,7 @@ def phase_blocks(state):
                     batch_captures=batch_calls["capture"] -
                     calls0["capture"],
                     captures=since.get("engine.setup_executables", 0),
+                    host_calls=since.get("engine.host_detect.calls", 0),
                     capture_s=sum(cap_s), launches=dict(rk.LAUNCHES),
                     shapes=dict(rk.ROW_TOTALS_SHAPES))
 
@@ -979,7 +1019,8 @@ def phase_blocks(state):
             log(f"blocks {name} ({alg}, n_p={n_p}, "
                 f"FCTPU_ROUNDS_BLOCK={b}): wall {m['wall']:.3f}s, "
                 f"{rounds} rounds, {batch}{m['blocks']} solo blocks, "
-                f"{m['captures']} captures in {m['capture_s']:.3f}s, host "
+                f"{m['captures']} captures in {m['capture_s']:.3f}s, "
+                f"{m['host_calls']} host-node runs, host "
                 f"syncs {m['syncs']}, device busy {busy}, peak {peak}, "
                 f"launches {m['launches']}, row_totals by shape "
                 f"{m['shapes']}")
@@ -1020,6 +1061,24 @@ def phase_blocks(state):
         if "fused" in name:
             check(a["launches"]["fused_move_rows"] > 0,
                   "blocks fused: fused_move_rows never launched")
+        if alg in HOST_ALGS:
+            # one host-node run a round that detects; none a step after
+            # the run converged, and none one round a host step
+            check(a["host_calls"] == a["res"].rounds and
+                  b["host_calls"] == 0,
+                  f"blocks {name}: {a['host_calls']} host-node runs for "
+                  f"{a['res'].rounds} rounds at block 8, "
+                  f"{b['host_calls']} at block 1")
+        if name == "cnm emailEu stand-in":
+            c = one(call, env, 8, device="cpu")
+            check(same(a["res"], c["res"], exact=False),
+                  f"blocks {name}: the card's block differs from the "
+                  f"port's CPU run")
+            log(f"blocks {name}: the card's block-8 run equals the port's "
+                f"CPU run (block 8) in partitions, slab and integer "
+                f"history; float fields equal: "
+                f"{same(a['res'], c['res'])} ({c['wall']:.2f}s on the "
+                f"CPU)")
         if name == "karate":
             c = one(call, env, 8, device="cpu")
             check(same(a["res"], c["res"], exact=False),
@@ -1066,6 +1125,13 @@ def phase_blocks(state):
             if "planted" in name:
                 check(a["launches"]["row_totals"] > 0,
                       f"blocks {name}: row_totals never launched")
+            if alg in HOST_ALGS:
+                # one host-node run a batched round, for every job it runs
+                want = max(r.rounds for r in a["res"])
+                check(not a["res"].splits and a["host_calls"] == want and
+                      b["host_calls"] == 0,
+                      f"blocks {name}: {a['host_calls']} host-node runs for "
+                      f"{want} batched rounds, splits {a['res'].splits}")
             timings[name] = time.perf_counter() - t_case
             log(f"blocks {name}: equal, {timings[name]:.2f}s")
     finally:
@@ -2280,7 +2346,7 @@ def _batch_cfg(state) -> dict:
     """The ConsensusConfig fields of phase batch's jobs (and of phase
     serve's batch A), seeds apart."""
     return dict(n_p=state.get("batch_n_p", 20), tau=0.2, delta=0.02,
-                closure_tau=0.2, max_rounds=state.get("batch_rounds", 16))
+                closure_tau=0.2, max_rounds=state.get("batch_rounds", 6))
 
 
 def _batch_graphs(name: str):
@@ -2309,7 +2375,10 @@ def _batch_graphs(name: str):
 def _device_busy(fn):
     """``fn()`` under torch.profiler, tracing the card only: ``(wall s,
     device busy s, kernels)``; busy is the union of the kernels'
-    intervals (None when the profiler shows no device time)."""
+    intervals (None when the profiler shows no device time).  The
+    intervals come from the profiler's raw records: building its event
+    tree (``prof.events()``) over the ~0.2 M kernels of a batch run
+    takes tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2319,9 +2388,11 @@ def _device_busy(fn):
         fn()
         sync()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall, (_busy_us(events) / 1e6 if events else None), len(events)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda]
+    return wall, (_busy(spans) / 1e9 if spans else None), len(spans)
 
 
 def _device_utilization(fn):
@@ -2360,12 +2431,11 @@ def _device_utilization(fn):
         len(samples)
 
 
-def _busy_us(events) -> float:
-    """Microseconds during which at least one of the kernel ``events``
-    ran (the union of their intervals)."""
+def _busy(spans) -> float:
+    """The time during which at least one kernel ran: the length of the
+    union of the ``(start, end)`` intervals ``spans``, in their unit."""
     busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in events):
+    for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
@@ -2555,12 +2625,14 @@ def phase_batch(state):
         if name == "A" and DEVICE == "cuda":
             # the device's busy share of the batch against the four solo
             # runs, traced again (batch A is short, so the trace is cheap)
+            t0 = time.perf_counter()
             b_wall, b_busy, b_n = _device_busy(lambda: run_consensus_batch(
                 slabs, det, cfg, n_closure=bucket.n_closure, seeds=seeds))
             s_wall, s_busy, s_n = _device_busy(lambda: [run_consensus(
                 slab, det, cfg, key=prng.key(sd, DEVICE),
                 n_closure=bucket.n_closure)
                 for slab, sd in zip(slabs, seeds)])
+            trace_s = time.perf_counter() - t0
             if b_busy is None or s_busy is None:
                 log("batch A: the profiler showed no device time; idle "
                     "share not measured")
@@ -2569,7 +2641,8 @@ def phase_batch(state):
                     f"{b_wall:.3f}s, device busy {b_busy:.3f}s, idle "
                     f"{1 - b_busy / b_wall:.1%}, {b_n} kernels; four solo "
                     f"runs wall {s_wall:.3f}s, busy {s_busy:.3f}s, idle "
-                    f"{1 - s_busy / s_wall:.1%}, {s_n} kernels")
+                    f"{1 - s_busy / s_wall:.1%}, {s_n} kernels; both "
+                    f"traces with their reading {trace_s:.2f}s")
 
 
 def _served_partitions(partitions, n: int):
@@ -3491,6 +3564,88 @@ def _held_peak(make_args, call):
     return peak, reserved
 
 
+def _pool_breakdown(step) -> dict:
+    """The card's reserved bytes by the allocator's pool, as
+    ``torch.cuda.memory_snapshot`` lists its segments: ``graph`` (the
+    captured graph's own pool), ``body/i`` (its IF bodies' pool, one
+    entry a stream: one stream a nesting depth, the capture stream's
+    among them) and ``other`` (the eager pool, and pools of closed graphs
+    that a library keeps alive); MiB."""
+    import torch
+
+    graph, body = tuple(step.graph.pool()), tuple(step._body_pool)
+    out: dict = {}
+    streams: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id") or (0, 0))
+        if pid == body:
+            key = streams.setdefault(seg["stream"], f"body/{len(streams)}")
+        else:
+            key = "graph" if pid == graph else "other"
+        out[key] = out.get(key, 0) + seg["total_size"]
+    return {k: round(v / 2 ** 20, 1) for k, v in sorted(out.items())}
+
+
+def _pool_case(job, kind, slab, bucket, b, n_p, env, make, block, eager):
+    """F5, one case of phase footprint: from an emptied cache, ``block``
+    (one block of 8 rounds: one capture and its replays) and then, while
+    its graph's pools are held, ``eager`` (one eager round, as a
+    stagnation refresh runs between blocks), on the arguments ``make()``
+    builds.  The card's ``max_memory_reserved`` over the baseline against
+    the blocked footprint model (``eager_cache`` + ``graph_pool`` +
+    ``body_pool``), which must be at least it and at most twice it."""
+    import torch
+
+    from fastconsensus_tpu_torch.analysis import entrypoints as ep
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base_r = torch.cuda.memory_reserved()
+        base_a = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        args = make()
+        runner, res = block(*args)
+        sync()
+        pools = _pool_breakdown(runner.step)
+        eager(*args)
+        sync()
+        reserved = torch.cuda.max_memory_reserved() - base_r
+        allocated = torch.cuda.max_memory_allocated() - base_a
+        runner.close()
+        secs = time.perf_counter() - t0
+        terms = ep.peak_terms(kind, slab, b=b, n_p=n_p,
+                              n_closure=bucket.n_closure, blocked=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del args
+    done = res.done
+    mib = {k: round(terms[k] / 2 ** 20, 1)
+           for k in ("eager_cache", "graph_pool", "body_pool", "peak")}
+    log(f"footprint F5 {kind} block ({job}, bucket {bucket.key()}, B {b}, "
+        f"n_p {n_p}, {ep.path_of(slab)} sweep, block 8: rounds done "
+        f"{done}, then one eager round): max_memory_reserved over the "
+        f"baseline {reserved / 2 ** 20:.1f} MiB (allocated "
+        f"{allocated / 2 ** 20:.1f} MiB); model {mib} MiB "
+        f"({terms['peak'] / reserved:.3f}x); the block's reserved MiB by "
+        f"pool and stream {pools}; {secs:.2f}s")
+    check(reserved <= terms["peak"] <= 2 * reserved,
+          f"F5 {kind} ({job}): model {terms['peak']} outside [reserved, 2 "
+          f"x reserved] for reserved {reserved}")
+    return dict(job=job, kind=kind, bucket=bucket.key(), b=b,
+                reserved=reserved, allocated=allocated, model=terms["peak"],
+                eager_cache=terms["eager_cache"],
+                graph_pool=terms["graph_pool"],
+                body_pool=terms["body_pool"], pools=pools)
+
+
 def phase_footprint(state):
     """The footprint memory model against the card.  Each kind's model
     at the job's own packed slab (``analysis/entrypoints.slab_peak_bytes``)
@@ -3634,6 +3789,52 @@ def phase_footprint(state):
         check(not bad, f"footprint model outside [peak, 2 x peak] for "
                        f"{bad}")
 
+    # F5: a fused block's graph pools against the blocked model, block 8
+    from fastconsensus_tpu_torch import engine, policy
+
+    cold = get_detector("louvain")
+
+    def solo_block(s, lab):
+        runner = engine.RoundsBlock(s, warm, n_p, tau, delta,
+                                    bucket10.n_closure, True,
+                                    closure_tau=ctau)
+        return runner, runner.run(s, key10, lab, 1, 8, False,
+                                  policy.INITIAL, False, (-1, -1, -1), 0)
+
+    def solo_eager(s, lab):
+        consensus_round(s, prng.stream(key10, prng.STREAM_ROUND, 9), cold,
+                        n_p, tau, delta, bucket10.n_closure,
+                        init_labels=sing10.to(DEVICE), closure_tau=ctau,
+                        prev_labels=lab)
+
+    def batch_block(slabs, labs):
+        runner = engine.BatchBlock(slabs[0], 4, warm, n_p, tau, delta,
+                                   bucket_a.n_closure, True,
+                                   closure_tau=ctau)
+        return runner, runner.run(slabs, keys_a, labs, [1] * 4, [8] * 4,
+                                  [False] * 4, [policy.INITIAL] * 4, False,
+                                  [(-1, -1, -1)] * 4)
+
+    def batch_eager(slabs, labs):
+        consensus_batch_round(slabs, round_a, cold, n_p, tau, delta,
+                              bucket_a.n_closure, labs, [False] * 4, labs,
+                              closure_tau=ctau)
+
+    pool_rows = []
+    if DEVICE == "cuda":
+        pool_rows.append(_pool_case(
+            "lfr10k", "rounds", slab10, bucket10, 1, n_p, {},
+            lambda: (_to_device(slab10), lab10.to(DEVICE)), solo_block,
+            solo_eager))
+        # a batched block runs only as one member chunk (phase blocks)
+        pool_rows.append(_pool_case(
+            "batch A", "batch", slabs_a[0], bucket_a, 4, n_p,
+            dict(BLOCK_BUDGET),
+            lambda: ([_to_device(s) for s in slabs_a],
+                     [sing_a.to(DEVICE) for _ in slabs_a]), batch_block,
+            batch_eager))
+    state["footprint_pools"] = pool_rows
+
     # the serve defaults' chip ceilings
     d = ServeConfig()
     spec = fp.SurfaceSpec(max_nodes=d.max_nodes, max_edges=d.max_edges,
@@ -3657,6 +3858,22 @@ def phase_footprint(state):
           bucket10.e_class <= at_small < bucket100.e_class,
           f"ceiling {at_small} at {small} bytes does not split lfr10k's "
           f"and lfr100k's buckets")
+    # under FCTPU_ROUNDS_BLOCK=8 the model prices the blocks' graph pools
+    os.environ["FCTPU_ROUNDS_BLOCK"] = "8"
+    try:
+        t0 = time.perf_counter()
+        blocked = (fp.derive_chip_ceiling(card, spec),
+                   fp.derive_chip_ceiling(small, spec))
+        blocked_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("FCTPU_ROUNDS_BLOCK", None)
+    log(f"footprint: chip ceilings at FCTPU_ROUNDS_BLOCK=8: {blocked[0]} "
+        f"edges at the card's memory, {blocked[1]} at {small} bytes "
+        f"({blocked_s:.2f}s)")
+    check(all(x is None or (y is not None and x <= y)
+              for x, y in zip(blocked, (at_card, at_small))),
+          f"a blocked ceiling {blocked} above the unblocked "
+          f"{(at_card, at_small)}")
     state["footprint_ceilings"] = dict(card=card, at_card=at_card,
                                        small=small, at_small=at_small)
 
@@ -3772,7 +3989,8 @@ def phase_profile(state):
     log(f"profile {cell}: host seconds by layer {layer_s}")
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us(events)
+    busy = _busy([(e.time_range.start, e.time_range.end)
+                     for e in events])
     own = sum(e.time_range.end - e.time_range.start for e in events
               if "row_totals_" in e.name)
     log(f"profile: row_totals kernels' device time {own / 1e6:.3f}s "
@@ -3851,12 +4069,12 @@ def main(argv=None) -> int:
                    help=f"comma list of {', '.join(PHASES)} (default: all) "
                         f"and the optional {', '.join(EXTRA_PHASES)}")
     p.add_argument("--n-p", type=int, default=200)
-    # lfr100k's rounds: bench.py's 8, cut to 6 to keep the release check
+    # lfr100k's rounds: bench.py's 8, cut to 3 to keep the release check
     # within its time limit
-    p.add_argument("--max-rounds", type=int, default=6)
-    p.add_argument("--leiden-rounds", type=int, default=16,
-                   help="leiden_lfr10k's max_rounds (default 16, "
-                        "bench.py's)")
+    p.add_argument("--max-rounds", type=int, default=3)
+    p.add_argument("--leiden-rounds", type=int, default=6,
+                   help="leiden_lfr10k's max_rounds (default 6; bench.py's "
+                        "16, cut to fit the time limit)")
     p.add_argument("--profile-cell", default="lfr100k",
                    choices=("lfr100k", "leiden_lfr10k", "lpm_emaileu",
                             "cnm_emaileu", "infomap_lfr10k"),

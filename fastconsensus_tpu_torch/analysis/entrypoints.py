@@ -38,6 +38,35 @@ n_p`` members, ``K = b * P`` members of a batch, int64 labels):
   the jobs' slabs beside their stack, the joined init labels and the
   stream of ``K`` members.
 
+**Blocks** (F5).  When the run would block (``FCTPU_ROUNDS_BLOCK`` at 2
+or more, or ``auto`` on the card: :func:`rounds_blocked`, as
+``consensus.rounds_block_size`` reads it), the ``rounds`` and ``batch``
+kinds run as fused blocks, one guarded round captured into a CUDA graph
+(``engine.RoundsBlock``, ``engine.BatchBlock``, ``ops/capture.py``).
+The graph's memory pools stay reserved while the block lives, beside
+what the eager rounds before it left in the allocator's cache, which a
+capture cannot hand back.  So a blocked kind is priced as three terms:
+
+* ``eager_cache`` — the eager round's peak, as the allocator reserves it
+  (:func:`reserved_bytes`): the driver's eager rounds (a warm run's
+  round 0, refreshes) leave it cached, and ``capture._make_room`` keeps
+  it (it empties the cache only of closed graphs' pools, or when the
+  card runs short);
+* ``graph_pool`` — the capture stream's allocations: the guarded step's
+  top-level scalars, one small segment;
+* ``body_pool`` — the IF nodes' bodies.  Each nesting depth captures from
+  a stream of its own, and the allocator reuses a block freed in one
+  body for the next body on the same stream, but never across streams.
+  So the pool is the sum over the depths of each one's peak, each as
+  the allocator reserves it: the round's carry (its clones and selects
+  of the slab and labels, ``2 b (slab + labels)``), the round's own
+  level (the detection's prepared state, its build and labels, and the
+  tail's temporaries) and the innermost bodies (the member sweeps'
+  work, or the closure's temporaries, the larger).
+
+The card checks the sum against ``max_memory_reserved`` (phase
+``footprint`` of ``chip_smoke.py``).  With blocks off no term changes.
+
 Two levels: :func:`slab_peak_bytes` is the model at one concrete slab
 geometry (a served job's own packed slab), and :func:`serving_peak_bytes`
 the bucket's worst case, the largest over the sweep paths and row
@@ -70,6 +99,12 @@ ALGORITHMS = ("louvain", "leiden", "lpm")
 # Bytes of a label and of a PRNG key.
 LABEL_BYTES = 8
 KEY_BYTES = 16
+# The caching allocator's segments: requests of 1 MiB or less come from
+# 2 MiB segments, larger ones under 10 MiB share 20 MiB segments, the
+# rest are rounded up to 2 MiB.
+SMALL_SEGMENT = 2 << 20
+LARGE_SEGMENT = 20 << 20
+ROUND_LARGE = 2 << 20
 # Transient bytes a slot of the directed slab costs while the prepared
 # rows are built (the directed copy, the sort key, order and sorted key,
 # row positions and the gathered values; engine's sort scratch aside).
@@ -198,14 +233,42 @@ def detect_terms(slab, k: int, algorithm: str = "louvain",
             "peak": state + max(build, work + labels, 2 * labels)}
 
 
+def rounds_blocked(device: str = "cuda") -> bool:
+    """Would a run on ``device`` take fused blocks?  FCTPU_ROUNDS_BLOCK as
+    ``consensus.rounds_block_size`` reads it: 2 or more, or ``auto`` on
+    the card."""
+    import torch
+
+    from fastconsensus_tpu_torch.consensus import rounds_block_size
+
+    block = rounds_block_size(torch.device(device))
+    return block is None or block >= 2
+
+
+def reserved_bytes(live: int) -> int:
+    """What the caching allocator may hold reserved for a peak of ``live``
+    bytes on one stream: the bytes with an eighth over for the blocks
+    its segments cannot place (the eager rounds' reserved peaks ran
+    1.06-1.19x their allocated ones on the card), in 2 MiB steps, plus
+    one shared 20 MiB segment and one small segment."""
+    if live <= 0:
+        return 0
+    return (-(-(live + live // 8) // ROUND_LARGE) * ROUND_LARGE +
+            LARGE_SEGMENT + SMALL_SEGMENT)
+
+
 def peak_terms(kind: str, slab, b: int = 1, mode: str = "warm",
                n_p: int = 20, algorithm: str = "louvain",
-               n_closure: int = 0, bound: bool = False) -> Dict[str, int]:
+               n_closure: int = 0, bound: bool = False,
+               blocked: bool = False) -> Dict[str, int]:
     """The model of ``kind`` at ``slab``'s geometry, term by term (see the
     module docstring): ``args`` (what the call is given), ``detect``
     (:func:`detect_terms`), ``tail`` (``engine.tail_temp_bytes``),
     ``out`` (what it returns) and ``peak``.  ``n_closure`` defaults to
-    the bucket's wedge count, ``(capacity - 16) // 2``."""
+    the bucket's wedge count, ``(capacity - 16) // 2``.  ``blocked``
+    prices a ``rounds`` or ``batch`` kind run in fused blocks: the
+    ``eager_cache``, ``graph_pool`` and ``body_pool`` terms, whose sum
+    is then the ``peak``."""
     from fastconsensus_tpu_torch.engine import (SLAB_SLOT_BYTES,
                                                 tail_temp_bytes)
 
@@ -256,18 +319,28 @@ def peak_terms(kind: str, slab, b: int = 1, mode: str = "warm",
         t["detect"] = d["peak"]
         t.update({f"detect_{key}": v for key, v in d.items()
                   if key != "peak"})
+    if blocked and kind in ("rounds", "batch"):
+        carry = 2 * b * (sl + lab)
+        level = d["state"] + d["build"] + 2 * d["labels"] + t["tail"]
+        inner = max(d["work"], t["tail"])
+        t["eager_cache"] = reserved_bytes(peak)
+        t["graph_pool"] = SMALL_SEGMENT
+        t["body_pool"] = sum(reserved_bytes(x)
+                             for x in (carry, level, inner))
+        peak = t["eager_cache"] + t["graph_pool"] + t["body_pool"]
     t.update(args=args, peak=peak, out=out)
     return t
 
 
 def slab_peak_bytes(kind: str, slab, b: int = 1, mode: str = "warm",
                     n_p: int = 20, algorithm: str = "louvain",
-                    n_closure: int = 0) -> Dict:
+                    n_closure: int = 0, blocked: bool = False) -> Dict:
     """Model (a): ``{"peak", "arg_bytes", "out_bytes", "path", "chunk",
     "over_budget"}`` of ``kind`` at one concrete slab geometry (a packed
-    slab on any device, or :func:`meta_slab`)."""
+    slab on any device, or :func:`meta_slab`), in fused blocks where
+    ``blocked``."""
     t = peak_terms(kind, slab, b=b, mode=mode, n_p=n_p, algorithm=algorithm,
-                   n_closure=n_closure)
+                   n_closure=n_closure, blocked=blocked)
     return {"peak": t["peak"], "arg_bytes": t["args"],
             "out_bytes": t["out"], "path": path_of(slab, algorithm),
             "chunk": t.get("detect_chunk"),
@@ -333,7 +406,8 @@ def _geometries(n_class: int, e_class: int, algorithm: str,
 
 
 @functools.lru_cache(maxsize=4096)
-def _bucket_peak(kind, n_class, e_class, b, mode, n_p, algorithm, env):
+def _bucket_peak(kind, n_class, e_class, b, mode, n_p, algorithm, env,
+                 blocked):
     import logging
 
     logger = logging.getLogger("fastconsensus_tpu_torch")
@@ -346,7 +420,7 @@ def _bucket_peak(kind, n_class, e_class, b, mode, n_p, algorithm, env):
         for slab in bucket_geometries(n_class, e_class, algorithm):
             t = peak_terms(kind, slab, b=b, mode=mode, n_p=n_p,
                            algorithm=algorithm, n_closure=e_class,
-                           bound=True)
+                           bound=True, blocked=blocked)
             if best is None or t["peak"] > best[0]["peak"]:
                 best = (t, slab)
     finally:
@@ -360,13 +434,15 @@ def _bucket_peak(kind, n_class, e_class, b, mode, n_p, algorithm, env):
 
 def serving_peak_bytes(kind: str, n_class: int, e_class: int, b: int = 1,
                        mode: str = "warm", n_p: int = 20,
-                       algorithm: str = "louvain") -> Dict:
+                       algorithm: str = "louvain",
+                       device: str = "cuda") -> Dict:
     """Model (b), the bucket's worst case: ``{"peak", "arg_bytes",
     "out_bytes", "path", "chunk", "over_budget"}`` of ``kind`` at bucket
     ``(n_class, e_class)``, the largest over :func:`bucket_geometries`
     with the chunk term at its bound (module docstring), the wedge count
-    the bucket's ``e_class``.  ``mode`` "-" stands for a kind's first
-    mode; the kinds without modes ignore it."""
+    the bucket's ``e_class``, in fused blocks where a run on ``device``
+    would take them (:func:`rounds_blocked`).  ``mode`` "-" stands for a
+    kind's first mode; the kinds without modes ignore it."""
     import os
 
     if kind not in SERVING_KINDS:
@@ -378,4 +454,5 @@ def serving_peak_bytes(kind: str, n_class: int, e_class: int, b: int = 1,
         "FCTPU_ENSEMBLE_CHUNK", "FCTPU_ENSEMBLE_BUDGET_MB",
         "FCTPU_MOVE_PATH"))
     return dict(_bucket_peak(kind, int(n_class), int(e_class), int(b),
-                             mode, int(n_p), algorithm, env))
+                             mode, int(n_p), algorithm, env,
+                             rounds_blocked(device)))

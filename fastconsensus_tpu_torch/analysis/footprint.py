@@ -162,6 +162,9 @@ class SurfaceSpec:
     rules: Optional[Tuple[str, ...]] = None
     origin: str = "<defaults>"
     origin_line: int = 0
+    # the device the served runs take: FCTPU_ROUNDS_BLOCK=auto blocks
+    # them only on the card (entrypoints.rounds_blocked)
+    device: str = "cuda"
 
     _KEYS = ("max_nodes", "max_edges", "max_batch", "n_p", "algorithm",
              "hbm_bytes", "surface_budget", "pad_waste_frac", "grid",
@@ -373,7 +376,8 @@ def _peak(kind: str, n_class: int, e_class: int, b: int, mode: str,
         serving_peak_bytes
 
     return serving_peak_bytes(kind, n_class, e_class, b=b, mode=mode,
-                              n_p=spec.n_p, algorithm=spec.algorithm)
+                              n_p=spec.n_p, algorithm=spec.algorithm,
+                              device=spec.device)
 
 
 def _row(kind: str, n_class: int, e_class: int, b: int, mode: str,

@@ -298,6 +298,15 @@ def uninstall() -> None:
         _prev = None
 
 
+def maybe_install_from_env() -> Optional[LockOrderRecorder]:
+    """Install iff ``FCTPU_LOCK_ORDER=1`` (the test-suite hook, as the
+    reference's): the recorder installed, else None and nothing
+    patched."""
+    if os.environ.get("FCTPU_LOCK_ORDER") == "1":
+        return install()
+    return None
+
+
 class recording:
     """``with lockorder.recording() as rec:``: scoped install/swap.
 

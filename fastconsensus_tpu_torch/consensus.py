@@ -10,13 +10,13 @@ and checkpoint/resume in the reference's file format
 (``utils/checkpoint.py``), and fcdelta's incremental re-consensus from a
 parent run's partitions (``init_labels`` / ``active_mask``).  Where the
 reference fuses rounds (one call a round, no checkpoint, no mesh, and
-here no detect cache) Louvain's, LPM's and Leiden's rounds run in fused
-blocks when FCTPU_ROUNDS_BLOCK asks for them (``engine.RoundsBlock``: a
-captured CUDA graph on the card, one stats readback a block), bit for
-bit one round a host step.  :func:`run_consensus_batch` runs B
-same-bucket graphs as one member-batched detection stream, each job's
-result its solo run's, its rounds in batched blocks alike
-(``engine.BatchBlock``).  With ``detect_cache_dir`` every round's
+here no detect cache) every detector's rounds run in fused blocks when
+FCTPU_ROUNDS_BLOCK asks for them (``engine.RoundsBlock``: a captured CUDA
+graph on the card, one stats readback a block; CNM's and Infomap's host
+C++ runs in it as a host node), bit for bit one round a host step.
+:func:`run_consensus_batch` runs B same-bucket graphs as one
+member-batched detection stream, each job's result its solo run's, its
+rounds in batched blocks alike (``engine.BatchBlock``).  With ``detect_cache_dir`` every round's
 detection and the final re-detection run in driver chunks persisted as
 they finish, so a
 killed run restarts within the round it died in.  fcobs spans and
@@ -650,9 +650,10 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                 dist.barrier()
 
     # Fused mode (the reference's): where a whole round is one call of
-    # a blocked detector (Louvain, LPM) and nothing is persisted per
-    # round, rounds run in blocks of up to BLOCK_MAX with one stats
-    # readback a block (engine.RoundsBlock; a CUDA graph on the card).
+    # a blocked detector (every one: CNM's and Infomap's host C++ as a
+    # host node of the graph) and nothing is persisted per round, rounds
+    # run in blocks of up to BLOCK_MAX with one stats readback a block
+    # (engine.RoundsBlock; a CUDA graph on the card).
     # Under warm start the blocks run warm rounds; a round that
     # re-detects from singletons (the first, a stagnation refresh) runs
     # on its own.  Block size never changes results; rounds_block_size
@@ -667,7 +668,8 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                 not getattr(detect, "supports_block", False) or \
                 (warm and mode != "warm"):
             return 1
-        if sizing.members_per_call(
+        # a host detector runs its whole ensemble in one host call
+        if not getattr(detect, "host_fn", None) and sizing.members_per_call(
                 slab, n_p, getattr(detect, "member_bytes", None)) < n_p:
             return 1
         return block_size
@@ -844,7 +846,9 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     1) keeps one batched round a host step, where the reference blocks
     at 8 by default; off the card ``auto`` is one round a step too (a
     block there computes both sides of every branch).  The host
-    detectors keep one round a step.
+    detectors (CNM, Infomap) block too: one host step a batched round
+    detects every job that runs, in job order (``engine.HostDetect``;
+    a host node of the captured graph on the card).
 
     **Bit-parity contract**: every job's
     partitions, rounds, convergence and history are those of running it
@@ -930,8 +934,9 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     det_block = detect_warm if warm else detect
     if block >= 2 and not (
             getattr(detect, "supports_block", False) and
-            getattr(detect, "supports_stack", False) and
-            det_block.chunk_of(stack_slabs(cur), B * n_p) >= B * n_p):
+            (getattr(detect, "host_fn", None) or (
+                getattr(detect, "supports_stack", False) and
+                det_block.chunk_of(stack_slabs(cur), B * n_p) >= B * n_p))):
         block = 1
     runner: Optional[BatchBlock] = None
 

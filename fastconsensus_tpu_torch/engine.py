@@ -27,7 +27,9 @@ and, on the card, replayed from one captured CUDA graph.
 :class:`BatchBlock` (with :func:`consensus_batch_block`, the reference's
 batched block) does the same for the B jobs of a batch: rounds of
 :func:`consensus_batch_round` with per-job stops, one graph a batch run.
-Each computes exactly what one round a host step computes.
+Each computes exactly what one round a host step computes.  The host
+C++ detectors run in both as a :class:`HostDetect` step, on the card a
+host node of the graph.
 """
 
 from __future__ import annotations
@@ -432,6 +434,109 @@ class _DeviceXP:
         return torch.where(c, self.asarray(a), self.asarray(b))
 
 
+class HostDetect:
+    """The host detectors' step of a fused block (CNM, Infomap): the
+    reference's ``jax.pure_callback`` inside its jitted block.  It detects
+    the ``n_jobs`` jobs of a block's static slabs ``slabs`` (views of the
+    block's carry: the solo block's one slab, or the batched block's
+    stacked ones, whose fields are ``fields``, each ``[n_jobs,
+    capacity]``) into :attr:`labels` (int64 ``[n_jobs, n_p, N]``), job j
+    where ``runs[j]`` holds, in job order, each exactly as one eager
+    round's ``detect(slab_j, keys_j)``; a job whose flag is clear keeps
+    its labels and draws no seed.
+
+    On the card (:meth:`__call__` under capture) the step is the
+    graph's: the fields, the keys and the flags are copied into pinned
+    buffers, a host node runs ``fc_host_detect`` (``native/src/
+    host_detect.cpp``) on them, and the int32 labels come back and are
+    widened on the device.  All of it sits at the graph's top level, so
+    the flags are the C++'s own test of a stopped block or a frozen job.
+    On the CPU the step calls ``detect`` itself, job by job: the plain
+    version.  :attr:`calls` counts the steps that detected a job."""
+
+    def __init__(self, detect: Detector, slabs: List[GraphSlab], fields,
+                 n_p: int, key_words: int = 2):
+        from fastconsensus_tpu_torch import native
+
+        if not all(f.is_contiguous() for f in fields):
+            raise ValueError("host detection stages contiguous fields")
+        self.detect, self.slabs, self.fields = detect, slabs, list(fields)
+        b, cap = self.fields[0].shape
+        n, dev = slabs[0].n_nodes, slabs[0].device
+        self.n_p, self.device = n_p, dev
+        self.labels = torch.zeros((b, n_p, n), dtype=torch.int64, device=dev)
+        self._calls = self._folded = 0
+        self._closed = False
+        self.args = None
+        if dev.type != "cuda":
+            return
+
+        self._buffers = capture.HostBuffers()
+        pinned = self._buffers.empty
+        self.h_fields = [pinned((b, cap), f.dtype) for f in self.fields]
+        self.h_keys = pinned((b * n_p, key_words), torch.int64)
+        self.h_runs = pinned((b,), torch.bool)
+        self.h_labels = pinned((b, n_p, n), torch.int32)
+        self.d_labels = torch.zeros((b, n_p, n), dtype=torch.int32,
+                                    device=dev)
+        src, dst, weight, alive = self.h_fields
+        self.fn = native.host_detect_fn()
+        self.args = native.HostDetectArgs(
+            detector=native.HOST_DETECTORS[detect.host_fn], n_jobs=b,
+            n_nodes=n, n_p=n_p, capacity=cap, key_words=key_words,
+            src=src.data_ptr(), dst=dst.data_ptr(),
+            weight=weight.data_ptr(), alive=alive.data_ptr(),
+            keys=self.h_keys.data_ptr(), runs=self.h_runs.data_ptr(),
+            labels=self.h_labels.data_ptr(), calls=0, detections=0)
+
+    @property
+    def calls(self) -> int:
+        """Steps that detected at least one job (on the card: host-node
+        runs that did, read after the block's readback synchronized)."""
+        return self._calls if self.args is None else int(self.args.calls)
+
+    def close(self) -> None:
+        """Free the pinned buffers, once no graph uses them (after the
+        block's graph is closed)."""
+        if self.args is None:
+            return
+        torch.cuda.synchronize(self.device)
+        self.h_fields = self.h_keys = self.h_runs = self.h_labels = None
+        self._buffers.close()
+        self._closed = True
+
+    def fold(self) -> None:
+        """After a block's readback: add the steps that detected since the
+        last fold to ``engine.host_detect.calls``."""
+        calls = self.calls
+        obs_counters.get_registry().inc("engine.host_detect.calls",
+                                        calls - self._folded)
+        self._folded = calls
+
+    def __call__(self, keys: torch.Tensor, runs: torch.Tensor) -> None:
+        """Detect job j's members with ``keys[j * n_p:(j + 1) * n_p]``
+        where ``runs[j]`` (bool ``[n_jobs]``) holds."""
+        if self.args is None:
+            # the plain version: the detector itself, job by job
+            ran = False
+            for j, slab in enumerate(self.slabs):
+                if bool(runs[j]):
+                    self.labels[j].copy_(self.detect(
+                        slab, keys[j * self.n_p:(j + 1) * self.n_p]))
+                    ran = True
+            self._calls += int(ran)
+            return
+        if self._closed:
+            raise RuntimeError("host detection after close()")
+        for h, d in zip(self.h_fields, self.fields):
+            capture.stage_to_host(h, d)
+        capture.stage_to_host(self.h_keys, keys.contiguous())
+        capture.stage_to_host(self.h_runs, runs)
+        capture.host_node(self.fn, self.args)
+        self.d_labels.copy_(self.h_labels, non_blocking=True)
+        self.labels.copy_(self.d_labels)
+
+
 class BlockResult(NamedTuple):
     """What one fused block hands back to ``run_consensus``."""
 
@@ -473,7 +578,11 @@ class RoundsBlock:
     the stop changes nothing (its round sits in an IF node on ``go``).
     Elsewhere the same round runs eagerly, its branches computed and
     selected.  Capacity and the static budgets are part of the captured
-    shapes: ``run_consensus`` makes a new block when they change."""
+    shapes: ``run_consensus`` makes a new block when they change.
+
+    A host detector (CNM, Infomap: ``host_fn``; no warm rounds) detects
+    in a :class:`HostDetect` step at the guarded step's top level, on
+    ``go``, before the IF node; the round inside reads its labels."""
 
     def __init__(self, slab: GraphSlab, detect: Detector, n_p: int,
                  tau: float, delta: float, n_closure: int, warm: bool,
@@ -510,6 +619,16 @@ class RoundsBlock:
         self.buf = _stats_like(n_p, dev, (BLOCK_MAX,))
         self.tmp = _stats_like(n_p, dev)
         self.step = None
+        self.host = None
+        if getattr(detect, "host_fn", None):
+            if warm:
+                raise ValueError("a host detector's block runs no warm "
+                                 "rounds")
+            self.host = HostDetect(detect, [self.slab], [
+                t.unsqueeze(0) for t in (self.src, self.dst, self.weight,
+                                         self.alive)], n_p)
+            # the round reads the labels the host step wrote
+            self.detect = lambda slab, keys, init=None: self.host.labels[0]
 
     # -- the guarded round --------------------------------------------
 
@@ -579,6 +698,12 @@ class RoundsBlock:
         i0 = self.i.clone()
         go = ~self.conv & ~self.need & ~self.grow & ~self.stop & \
             (self.i < self.max_iters)
+        if self.host is not None:
+            # the host detection runs at the top level, on the round's
+            # member keys, where the round goes
+            k = prng.stream(self.key, prng.STREAM_ROUND,
+                            self.start_round + self.i)
+            self.host(round_keys(k, self.n_p)[0], go.reshape(1))
         carry = [self.src, self.dst, self.weight, self.alive, self.labels,
                  self.i, self.conv, self.need, self.grow, self.stop,
                  self.aligned, *self.pst]
@@ -640,6 +765,8 @@ class RoundsBlock:
             at += b.numel()
         if on_card:
             row_kernels.fold_device_counts(self.device, flat[at:])
+        if self.host is not None:
+            self.host.fold()
         rows = [RoundStats(*(f[j] for f in fields))
                 for j in range(done + int(grow))]
         out = dataclasses.replace(self.slab, src=self.src.clone(),
@@ -660,10 +787,13 @@ class RoundsBlock:
                         time.perf_counter() - t0)
 
     def close(self) -> None:
-        """Free the captured graph and its pools."""
+        """Free the captured graph and its pools, and the host step's
+        pinned buffers."""
         if self.step is not None:
             self.step.close()
             self.step = None
+        if self.host is not None:
+            self.host.close()
 
 
 def consensus_rounds_block(slab: GraphSlab, key: torch.Tensor,
@@ -740,7 +870,12 @@ class BatchBlock:
     statics never change under it (a job whose statics would change is
     split off), so the card captures once a run and replays the one
     graph for every block.  Elsewhere the same round runs eagerly, its
-    branches computed and selected."""
+    branches computed and selected.
+
+    A host detector (CNM, Infomap) detects in one :class:`HostDetect`
+    step a round, at the step's top level: every job that runs, in job
+    order (the reference's ``vmap_method="sequential"`` callback); a
+    frozen job's labels stay as they were and are not used."""
 
     def __init__(self, slab: GraphSlab, n_jobs: int, detect: Detector,
                  n_p: int, tau: float, delta: float, n_closure: int,
@@ -776,12 +911,27 @@ class BatchBlock:
         self.buf = _stats_like(n_p, dev, (BLOCK_MAX, b))
         self.tmp = _stats_like(n_p, dev, (b,))
         self.step = None
+        self.host = None
+        if getattr(detect, "host_fn", None):
+            if warm:
+                raise ValueError("a host detector's block runs no warm "
+                                 "rounds")
+            s = self.stacked
+            self.host = HostDetect(detect, self.slabs,
+                                   [s.src, s.dst, s.weight, s.alive], n_p)
 
     # -- the guarded round --------------------------------------------
 
     def _state(self) -> List[torch.Tensor]:
         s = self.stacked
         return [s.src, s.dst, s.weight, s.alive, self.labels]
+
+    def _round_keys(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each job's member keys and closure key of the round at ``i``."""
+        k = prng.stream(self.keys, prng.STREAM_ROUND,
+                        self.start_round + self.i)
+        return [round_keys(k[j], self.n_p, self.aligned[j] if self.warm
+                           else False) for j in range(self.n_jobs)]
 
     def _round(self, run: torch.Tensor) -> List[torch.Tensor]:
         """One round of the jobs ``run`` (bool[B]) from the carry: the new
@@ -790,16 +940,16 @@ class BatchBlock:
         dev, b, n_p = self.device, self.n_jobs, self.n_p
         n = self.stacked.n_nodes
         xp = _DeviceXP(dev)
-        k = prng.stream(self.keys, prng.STREAM_ROUND,
-                        self.start_round + self.i)
-        derived = [round_keys(k[j], n_p, self.aligned[j] if self.warm
-                              else False) for j in range(b)]
-        with capture.sweeping(run.repeat_interleave(n_p)):
-            lab = detect_stacked(
-                self.detect, self.stacked,
-                torch.cat([d for d, _ in derived], dim=0),
-                self.labels.reshape(b * n_p, n) if self.warm else None
-            ).view(b, n_p, n)
+        derived = self._round_keys()
+        if self.host is not None:
+            lab = self.host.labels     # the host step's, at the top level
+        else:
+            with capture.sweeping(run.repeat_interleave(n_p)):
+                lab = detect_stacked(
+                    self.detect, self.stacked,
+                    torch.cat([d for d, _ in derived], dim=0),
+                    self.labels.reshape(b * n_p, n) if self.warm else None
+                ).view(b, n_p, n)
         state = self._state()
         new = [t.clone() for t in state[:4]]
         tmp = [t.clone() for t in self.tmp]
@@ -860,6 +1010,9 @@ class BatchBlock:
             run = go & ~halt
         else:
             run = go
+        if self.host is not None:
+            # the host detection of the jobs that run, at the top level
+            self.host(torch.cat([d for d, _ in self._round_keys()]), run)
         carry = self._state() + [self.i, self.conv, self.need, self.grow,
                                  self.aligned, *self.pst]
         capture.when(run.any(), lambda: self._round(run),
@@ -942,6 +1095,8 @@ class BatchBlock:
             at += t.numel()
         if on_card:
             row_kernels.fold_device_counts(self.device, flat[at:])
+        if self.host is not None:
+            self.host.fold()
         stats = [[RoundStats(*(f[r, j] for f in fields))
                   for r in range(done[j] + int(grow[j]))] for j in range(b)]
         return BatchBlockResult(
@@ -960,10 +1115,13 @@ class BatchBlock:
                         time.perf_counter() - t0)
 
     def close(self) -> None:
-        """Free the captured graph and its pools."""
+        """Free the captured graph and its pools, and the host step's
+        pinned buffers."""
         if self.step is not None:
             self.step.close()
             self.step = None
+        if self.host is not None:
+            self.host.close()
 
 
 def consensus_batch_block(slabs: List[GraphSlab], keys: List[torch.Tensor],

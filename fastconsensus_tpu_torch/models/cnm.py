@@ -11,6 +11,14 @@ card.
 
 Neither host detector takes initial labels or shares keys across members
 (no ``supports_init`` / ``supports_align``), so every round runs cold.
+
+In a fused round block (``supports_block``; ``engine.RoundsBlock`` and
+``engine.BatchBlock``) the same call runs as the block's host step
+(``engine.HostDetect``): on the card a host node of the captured graph
+calls the C++ (``native/src/host_detect.cpp``) on pinned copies of the
+slab and keys, as the reference's ``jax.pure_callback`` does inside its
+jitted block; on the CPU the block calls this detector directly.
+``host_fn`` names the native function for it.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ def make_host_detector(fn_name: str) -> Detector:
         labels = run(src, dst, weight, slab.n_nodes, seeds_from_keys(keys))
         return torch.as_tensor(labels.astype(np.int64), device=slab.device)
 
+    detect.supports_block = True
+    detect.host_fn = fn_name
     return detect
 
 

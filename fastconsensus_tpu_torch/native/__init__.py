@@ -3,7 +3,8 @@
 CNM fast-greedy agglomeration and the Infomap map-equation search are
 sequential algorithms with no data-parallel form, so both packages run
 them on the host.  The sources in ``src/`` are the port's own copy of the
-reference's first-party C++ (``fastconsensus_tpu/native/src``, unchanged).
+reference's first-party C++ (``fastconsensus_tpu/native/src``, unchanged,
+:data:`SOURCES`) and the port's ``host_detect.cpp`` (:data:`PORT_SOURCES`).
 They compile at first use with one ``g++`` process into
 ``fastconsensus_tpu_torch/_build/``, keyed by a hash of the sources, the
 compiler and its flags, and load through :mod:`ctypes` with the
@@ -17,6 +18,9 @@ compiler's error output.
 * :func:`cnm_labels`     — n_p randomized CNM fast-greedy partitions
 * :func:`infomap_labels` — n_p Infomap (two-level map equation) partitions
 * :func:`parse_edgelist` — single-pass ``u v [w]`` file parser
+* :func:`host_detect`    — the host node's step of a round block
+  (``src/host_detect.cpp``, the port's own source beside the copies):
+  CNM or Infomap for each live job of staged buffers
 * :func:`available`      — whether the library built and loaded
 * :func:`loaded`         — whether it is loaded, without building it
 """
@@ -39,6 +43,8 @@ SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fastgreedy.cpp", "infomap.cpp", "edgelist.cpp")
 HEADERS = ("common.hpp",)
+# The port's own sources, built into the same library.
+PORT_SOURCES = ("host_detect.cpp",)
 # The compiler and flags of the build; both are part of the build key.
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
@@ -56,7 +62,7 @@ def lib_path() -> Path:
     """Where the library for the current sources, compiler and flags
     lives."""
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in SOURCES + PORT_SOURCES + HEADERS:
         h.update(name.encode() + b"\0" + (SRC_DIR / name).read_bytes())
     h.update(" ".join([CXX] + CXX_FLAGS).encode())
     return BUILD_DIR / f"libfcnative_{h.hexdigest()[:16]}.so"
@@ -76,7 +82,7 @@ def _compile(so_path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [CXX, *CXX_FLAGS, "-o", str(tmp)]
-    cmd += [str(SRC_DIR / s) for s in SOURCES]
+    cmd += [str(SRC_DIR / s) for s in SOURCES + PORT_SOURCES]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True,
                        timeout=300)
@@ -87,6 +93,26 @@ def _compile(so_path: Path) -> None:
         raise NativeBuildError(f"{CXX}: {e}") from None
     os.replace(tmp, so_path)
     note_build("g++:fcnative")
+
+
+# The detectors fc_host_detect runs, by the native function's name.
+HOST_DETECTORS = {"cnm_labels": 0, "infomap_labels": 1}
+
+
+class HostDetectArgs(ctypes.Structure):
+    """``fc_host_detect``'s argument (``src/host_detect.cpp``), field by
+    field: the detector, the static sizes, the staged buffers' addresses
+    and two counts the C function keeps (``calls``: executions with a job
+    to detect; ``detections``: jobs detected)."""
+
+    _fields_ = [("detector", ctypes.c_int32), ("n_jobs", ctypes.c_int32),
+                ("n_nodes", ctypes.c_int32), ("n_p", ctypes.c_int32),
+                ("capacity", ctypes.c_int64), ("key_words", ctypes.c_int64),
+                ("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("weight", ctypes.c_void_p), ("alive", ctypes.c_void_p),
+                ("keys", ctypes.c_void_p), ("runs", ctypes.c_void_p),
+                ("labels", ctypes.c_void_p), ("calls", ctypes.c_int64),
+                ("detections", ctypes.c_int64)]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -103,6 +129,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_double), ctypes.c_int64]
     lib.fc_parse_edgelist_fill.restype = None
+    lib.fc_host_detect.argtypes = [ctypes.c_void_p]
+    lib.fc_host_detect.restype = None
+    lib.fc_host_detect_args_size.argtypes = []
+    lib.fc_host_detect_args_size.restype = ctypes.c_int64
+    if lib.fc_host_detect_args_size() != ctypes.sizeof(HostDetectArgs):
+        raise NativeBuildError(
+            f"fc_host_detect's argument is "
+            f"{lib.fc_host_detect_args_size()} bytes, HostDetectArgs "
+            f"{ctypes.sizeof(HostDetectArgs)}")
     return lib
 
 
@@ -192,6 +227,17 @@ def cnm_labels(src, dst, weight, n_nodes: int, seeds) -> np.ndarray:
 def infomap_labels(src, dst, weight, n_nodes: int, seeds) -> np.ndarray:
     """n_p Infomap (two-level map equation) partitions; int32[n_p, N]."""
     return _run_detector("fc_infomap", src, dst, weight, n_nodes, seeds)
+
+
+def host_detect_fn() -> int:
+    """The address of ``fc_host_detect`` (a ``cudaHostFn_t``), for a host
+    node of a captured graph."""
+    return ctypes.cast(load().fc_host_detect, ctypes.c_void_p).value
+
+
+def host_detect(args: HostDetectArgs) -> None:
+    """Run ``fc_host_detect`` on ``args`` here, on the calling thread."""
+    load().fc_host_detect(ctypes.byref(args))
 
 
 def parse_edgelist(path: str) -> Tuple[np.ndarray, np.ndarray,

@@ -21,6 +21,11 @@ that needs:
   static shape; a frozen job's members start stopped, so they keep their
   start labels and add no sweep, and the block launches what one batched
   round a host step launches;
+* :func:`host_node` and :func:`stage_to_host`: a C function run on the
+  host in stream order (``csrc/host_node.cu``; under capture a host node
+  of the graph, the port's counterpart of the reference's
+  ``jax.pure_callback``), fed by copies into pinned buffers that the
+  step registers;
 * :class:`CapturedStep`: one capture of a function into a
   ``torch.cuda.CUDAGraph``.  The IF nodes' bodies are captured from
   streams of their own, so their temporaries come from a second memory
@@ -31,7 +36,19 @@ While a step is captured, a host read (``item``, ``bool``, a boolean
 mask, a copy to the host) or a device-wide synchronize raises
 :class:`CaptureError` before it reaches the card: on the card it would
 invalidate the capture, and a capture invalidated inside an IF node's
-body cannot be ended safely, which leaves its streams capturing.
+body cannot be ended safely, which leaves its streams capturing.  The
+one exemption is a copy into a pinned staging buffer that
+:func:`stage_to_host` registered for this capture: at replay it is a
+copy node that a host node after it reads, and the host reads nothing
+at capture.
+
+A host node and a copy to or from host memory stay at the top level of
+the graph, never inside an IF node's body: CUDA's conditional bodies
+admit kernels, copies and memsets of device memory, and nested
+conditional, empty and child-graph nodes, not host nodes (CUDA 12.8
+refuses one there with ``cudaErrorInvalidValue``).  A host
+function that must not run after a block stopped reads its own flag
+(staged just before it) and leaves its outputs as they were.
 """
 
 from __future__ import annotations
@@ -173,9 +190,95 @@ def when(pred: torch.Tensor, body: Callable[[], Sequence[torch.Tensor]],
         o.copy_(torch.where(pred, r, o))
 
 
+def _staged(t: torch.Tensor) -> bool:
+    """Is ``t`` a whole staging buffer registered for this capture?"""
+    staging = getattr(_local, "staging", None)
+    return staging is not None and \
+        staging.get(t.data_ptr()) == t.numel() * t.element_size()
+
+
+def stage_to_host(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` (on the card) into ``dst``, a whole pinned host buffer
+    that outlives the step, in stream order and without a sync: the input
+    of a :func:`host_node` after it.  Under capture it registers ``dst``
+    first, the only host copy :class:`_NoHostRead` then admits."""
+    if dst.device.type != "cpu" or not dst.is_contiguous():
+        raise ValueError(f"a staging buffer is a contiguous host tensor, "
+                         f"not {dst.device} {tuple(dst.shape)}")
+    staging = getattr(_local, "staging", None)
+    if staging is not None:
+        staging[dst.data_ptr()] = dst.numel() * dst.element_size()
+    dst.copy_(src, non_blocking=True)
+
+
+class HostBuffers:
+    """Pinned host tensors for :func:`stage_to_host` and the host nodes,
+    from ``csrc/host_node.cu`` (``cudaHostAlloc``) rather than torch's
+    pinned-memory cache, which would record events on the capture stream
+    for every copy and again when a tensor is freed, whenever that is.
+    :meth:`close` frees them; it must not run during a capture."""
+
+    def __init__(self):
+        self._ptrs: list = []
+
+    def empty(self, shape: Sequence[int], dtype: torch.dtype
+              ) -> torch.Tensor:
+        """A zeroed pinned host tensor of ``shape`` and ``dtype``."""
+        import ctypes
+        import math
+
+        from fastconsensus_tpu_torch.ops import row_kernels
+
+        n = max(1, math.prod(shape))
+        nbytes = n * torch.empty((), dtype=dtype).element_size()
+        ptr = row_kernels._load("host_node").host_node_alloc(nbytes)
+        if not ptr:
+            raise CaptureError(f"host_node_alloc of {nbytes} bytes failed")
+        self._ptrs.append(ptr)
+        buf = (ctypes.c_uint8 * nbytes).from_address(ptr)
+        t = torch.frombuffer(buf, dtype=dtype, count=n)
+        t.zero_()
+        return t[:math.prod(shape)].view(tuple(shape))
+
+    def close(self) -> None:
+        """Free every buffer (the tensors made from them must be dropped
+        first and no graph may still use them)."""
+        from fastconsensus_tpu_torch.ops import row_kernels
+
+        lib = row_kernels._load("host_node") if self._ptrs else None
+        while self._ptrs:
+            err = lib.host_node_free(self._ptrs.pop())
+            if err != 0:
+                raise CaptureError(f"host_node_free failed with CUDA "
+                                   f"error {err}")
+
+
+def host_node(fn: int, arg) -> None:
+    """Run the C function at address ``fn`` (a ``cudaHostFn_t``, which
+    must not call CUDA or take the interpreter's lock) on ``arg`` (a
+    ctypes object) on the host, in the current stream's order: under
+    capture a host node of the graph, run at every replay; on the card
+    outside a capture, once.  The step keeps ``arg`` alive as long as
+    its graph."""
+    import ctypes
+
+    from fastconsensus_tpu_torch.ops import row_kernels
+
+    lib = row_kernels._load("host_node")
+    keep = getattr(_local, "keep", None)
+    if keep is not None:
+        keep.append(arg)
+    stream = torch.cuda.current_stream()
+    err = lib.host_node_launch(stream.cuda_stream, fn,
+                               ctypes.addressof(arg))
+    if err != 0:
+        raise CaptureError(f"host_node_launch failed with CUDA error {err}")
+
+
 class _NoHostRead(TorchDispatchMode):
     """Raise on the ops that read a tensor to the host or size their
-    output from its data."""
+    output from its data; a copy into a registered staging buffer
+    (:func:`stage_to_host`) is the one host copy let through."""
 
     BANNED = frozenset(("_local_scalar_dense", "nonzero", "masked_select",
                         "_unique2", "unique_consecutive", "unique_dim",
@@ -188,6 +291,8 @@ class _NoHostRead(TorchDispatchMode):
                    and torch.device(kwargs["device"]).type == "cpu") or \
             (name == "copy_" and args[0].device.type == "cpu" and
              args[1].device.type != "cpu")
+        if to_host and name == "copy_" and _staged(args[0]):
+            to_host = False
         if name in self.BANNED or to_host:
             raise CaptureError(f"a host read ({name}) in a captured round")
         return func(*args, **kwargs)
@@ -213,16 +318,25 @@ def _no_sync():
         torch.cuda.synchronize = orig
 
 
+# Devices on which a closed graph's pools are still held in the cache.
+_closed_pools: set = set()
+
+
 def _make_room(device: torch.device) -> None:
     """Before a capture: an allocation inside one cannot empty the cache,
     and the pools of closed graphs stay reserved until it is emptied.  So
-    the cache is emptied here, but only when what this process holds
-    reserved and unused is more than the card has free."""
+    the cache is emptied here when a graph was closed on the device since
+    the last capture (its pools would add to the new graph's, which the
+    footprint model does not price: ``analysis/entrypoints.py``), or when
+    what this process holds reserved and unused is more than the card
+    has free.  What the eager rounds left cached stays, and the model
+    prices it."""
     idx = device.index
     unused = torch.cuda.memory_reserved(idx) - \
         torch.cuda.memory_allocated(idx)
-    if unused > torch.cuda.mem_get_info(idx)[0]:
+    if device in _closed_pools or unused > torch.cuda.mem_get_info(idx)[0]:
         torch.cuda.empty_cache()
+        _closed_pools.discard(device)
 
 
 class CapturedStep:
@@ -237,12 +351,18 @@ class CapturedStep:
         self.device = device
         row_kernels.device_counts(device)   # made before any capture
         row_kernels._load("graph_cond")
+        row_kernels._load("host_node")
+        with torch.cuda.device(device):
+            # cuBLAS makes its handle at a thread's first product on the
+            # device, which a capture refuses (CUBLAS_STATUS_NOT_INITIALIZED)
+            torch.cuda.current_blas_handle()
         self.graph = torch.cuda.CUDAGraph()
         self._body_pool = torch.cuda.graph_pool_handle()
         self._keep: list = []
         idx = device.index
         prev_keep = getattr(_local, "keep", None)
         _local.keep = self._keep
+        _local.staging = {}
         main = torch.cuda.current_stream(device)
         stream = _child_stream(device, -1)     # the capture stream
         stream.wait_stream(main)
@@ -266,6 +386,7 @@ class CapturedStep:
                     self.graph.capture_end()
         finally:
             _local.keep = prev_keep
+            _local.staging = None
             main.wait_stream(stream)
 
     def replay(self) -> None:
@@ -274,10 +395,11 @@ class CapturedStep:
     def close(self) -> None:
         """Free the graph and hand its body pool back (the graph's own
         pool goes with the graph); their memory stays in the cache, which
-        the next capture empties if it must (:func:`_make_room`)."""
+        the next capture on the device empties (:func:`_make_room`)."""
         if self.graph is None:
             return
         with _capture_lock:
             self.graph = None
             self._keep.clear()
             torch._C._cuda_releasePool(self.device.index, self._body_pool)
+            _closed_pools.add(self.device)

@@ -36,7 +36,8 @@ the content hash of the source, every header under ``csrc/`` and the
 flags, and loads with ctypes: a plain C entry point
 that launches on the current stream of the tensors' device and returns
 ``cudaGetLastError()``.  ``csrc/graph_cond.cu`` (the capture's
-conditional nodes) builds beside the kernels.
+conditional nodes) and ``csrc/host_node.cu`` (its host nodes) build
+beside the kernels.
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"row_totals": "row_totals.cu",
            "fused_move_rows": "fused_move_rows.cu"}
 # Built and loaded like the kernels; no launch counts (ops/capture.py).
-CONTROL_SOURCES = {"graph_cond": "graph_cond.cu"}
+CONTROL_SOURCES = {"graph_cond": "graph_cond.cu",
+                   "host_node": "host_node.cu"}
 _ALL_SOURCES = {**SOURCES, **CONTROL_SOURCES}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -179,6 +181,15 @@ def _load(name: str) -> ctypes.CDLL:
             lib.graph_cond_status.restype = ctypes.c_int
             lib.graph_cond_stream_create.argtypes = []
             lib.graph_cond_stream_create.restype = ctypes.c_void_p
+            _libs[name] = lib
+            return lib
+        if name == "host_node":
+            lib.host_node_launch.argtypes = [ctypes.c_void_p] * 3
+            lib.host_node_launch.restype = ctypes.c_int
+            lib.host_node_alloc.argtypes = [ctypes.c_size_t]
+            lib.host_node_alloc.restype = ctypes.c_void_p
+            lib.host_node_free.argtypes = [ctypes.c_void_p]
+            lib.host_node_free.restype = ctypes.c_int
             _libs[name] = lib
             return lib
         fn = getattr(lib, f"{name}_launch")

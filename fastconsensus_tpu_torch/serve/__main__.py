@@ -272,7 +272,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             max_batch=args.max_batch,
             n_p=int((warm_config or {}).get("n_p", 20)),
             algorithm=str((warm_config or {}).get("algorithm",
-                                                  "louvain")))
+                                                  "louvain")),
+            device=args.device)
         say(f"deriving the single-chip ceiling from the footprint "
             f"model (budget {budget / 2**30:.1f} GiB)...")
         derived = footprint.derive_chip_ceiling(budget, spec)

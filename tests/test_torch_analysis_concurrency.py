@@ -203,6 +203,23 @@ def _join_all(threads, deadline):
     assert not stuck, f"deadlock watchdog: threads stuck: {stuck}"
 
 
+@pytest.fixture
+def port_lock_order():
+    """The port's recorder from the environment: ``FCTPU_LOCK_ORDER=1``
+    installs it for the test (``lockorder.maybe_install_from_env``, as
+    the reference's conftest installs its own), whose observed graph must
+    then be acyclic; unset, nothing is installed."""
+    rec = tlock.maybe_install_from_env()
+    try:
+        yield rec
+    finally:
+        if rec is not None:
+            tlock.uninstall()
+    if rec is not None:
+        rec.assert_acyclic()
+
+
+@pytest.mark.usefixtures("port_lock_order")
 def test_lock_order_stress_queue_cache_scheduler(monkeypatch):
     """Submitter threads hammer the port's AdmissionQueue while consumers
     pop_batch, probe the ResultCache and route through the
@@ -299,6 +316,7 @@ def test_lock_order_stress_queue_cache_scheduler(monkeypatch):
             set(sites.values())
 
 
+@pytest.mark.usefixtures("port_lock_order")
 def test_lock_order_stress_consensus_service_cpu(monkeypatch):
     """A ConsensusService on the CPU (two workers, batches of up to four)
     fed by submitter threads under the recorder: every job finishes, the
@@ -429,6 +447,53 @@ def test_port_and_reference_recorders_side_by_side():
     assert t_files == {os.path.join(PKG, "serve", "cache.py")}
     assert j_files == {os.path.join(REF_PKG, "serve", "cache.py")}
     # and the port's edge maps onto its static key
+    sites, static = _static()
+    assert trec.named_edges(sites) == {(
+        "fastconsensus_tpu_torch.serve.cache.ResultCache._spill_lock",
+        "fastconsensus_tpu_torch.serve.cache.ResultCache._lock")}
+    trec.assert_acyclic(extra_edges=static, sites=sites)
+
+
+def test_lock_order_env_hook_unset_installs_nothing(monkeypatch):
+    """``maybe_install_from_env`` with FCTPU_LOCK_ORDER unset (or not
+    "1"): None, and the factories are the ones found."""
+    before = (threading.Lock, threading.RLock, threading.Condition)
+    for value in (None, "0", "yes"):
+        if value is None:
+            monkeypatch.delenv("FCTPU_LOCK_ORDER", raising=False)
+        else:
+            monkeypatch.setenv("FCTPU_LOCK_ORDER", value)
+        assert tlock.maybe_install_from_env() is None
+        assert tlock._prev is None and tlock._recorder is None
+        assert (threading.Lock, threading.RLock,
+                threading.Condition) == before
+
+
+def test_lock_order_env_hook_installs_beside_the_reference(monkeypatch):
+    """FCTPU_LOCK_ORDER=1: the port's recorder installs on top of the
+    reference's (which the reference's conftest installs from the same
+    variable), records the port's locks only, and uninstalls back to the
+    reference's factories, which unwind to the real ones."""
+    from fastconsensus_tpu_torch.serve.cache import ResultCache as TCache
+
+    monkeypatch.setenv("FCTPU_LOCK_ORDER", "1")
+    real = (threading.Lock, threading.RLock, threading.Condition)
+    with jlock.recording():
+        ref = (threading.Lock, threading.RLock, threading.Condition)
+        trec = tlock.maybe_install_from_env()
+        try:
+            assert trec is not None and trec is tlock._recorder
+            assert threading.Lock is tlock._OURS["Lock"]
+            tcache = TCache()
+            with tcache._spill_lock:
+                with tcache._lock:
+                    pass
+        finally:
+            tlock.uninstall()
+        assert tlock._prev is None and tlock._recorder is None
+        assert (threading.Lock, threading.RLock,
+                threading.Condition) == ref
+    assert (threading.Lock, threading.RLock, threading.Condition) == real
     sites, static = _static()
     assert trec.named_edges(sites) == {(
         "fastconsensus_tpu_torch.serve.cache.ResultCache._spill_lock",

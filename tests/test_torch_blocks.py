@@ -649,3 +649,234 @@ def test_broadcast_shape_matches_torch():
         assert broadcast_shape(*shapes) == torch.broadcast_shapes(*shapes)
     with pytest.raises(ValueError):
         broadcast_shape((3,), (4,))
+
+
+# -- the host detectors (CNM, Infomap) in the blocks ----------------------
+#
+# On the CPU a block's host step calls the detector itself, job by job
+# (``engine.HostDetect``, the plain version of the host node the card's
+# graph holds); a round that does not go (a stopped block, a frozen job)
+# detects nothing.  Exact, as above.
+
+
+def _email_standin():
+    """bench.py's emailEu stand-in (planted, n 1,005, 42 blocks)."""
+    from fastconsensus_tpu_torch.utils import synth
+
+    sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
+    edges, _ = synth.planted_partition(1005, 42, 0.6, 0.02, seed=42,
+                                       sizes=sizes)
+    return np.asarray(edges), 1005
+
+
+def _host_calls(reg):
+    return reg.counters().get("engine.host_detect.calls", 0)
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+@pytest.mark.parametrize("graph", ["karate", "emailEu"])
+def test_host_detector_block_matches_per_round(monkeypatch, alg, graph):
+    """CNM and Infomap through ``run_consensus`` at FCTPU_ROUNDS_BLOCK=8
+    against one round a host step: partitions, history and slab exactly.
+    The block's host step runs once a round and not on the steps after
+    the run converged (karate converges inside its first block, the
+    stand-in runs six rounds at delta 0)."""
+    edges, n = _karate() if graph == "karate" else _email_standin()
+    slab = pack_edges(edges, n, device="cpu")
+    cfg = dict(n_p=4 if graph == "emailEu" else 6,
+               tau=0.7 if alg == "cnm" else 0.6,
+               delta=0.0 if graph == "emailEu" else 0.02, seed=1,
+               max_rounds=6)
+    reg = tcounters.get_registry()
+    calls0 = _host_calls(reg)
+    blocked, n_blocks = _port(monkeypatch, 8, slab, alg, cfg)
+    calls = _host_calls(reg) - calls0
+    single, none = _port(monkeypatch, 1, slab, alg, cfg)
+    assert n_blocks >= 1 and none == 0
+    assert calls == blocked.rounds
+    if graph == "karate":
+        assert blocked.converged and blocked.rounds < cfg["max_rounds"]
+    _assert_identical(blocked, single)
+
+
+def _random_jobs():
+    """Four seeded random graphs of one bucket (n64_e96)."""
+    from fastconsensus_tpu_torch.serve import bucketer
+
+    graphs = []
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        pairs = set()
+        while len(pairs) < 90:
+            u, v = rng.integers(0, 40, 2)
+            if u != v:
+                pairs.add((min(u, v), max(u, v)))
+        graphs.append((np.array(sorted(pairs)), 40))
+    padded = [bucketer.pad_to_bucket(e, n, device="cpu") for e, n in graphs]
+    return [s for s, _ in padded], padded[0][1].n_closure
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+def test_host_detector_batch_block_matches_per_round_and_solo(monkeypatch,
+                                                              alg):
+    """CNM and Infomap through ``run_consensus_batch`` at
+    FCTPU_ROUNDS_BLOCK=8: one batched block, bitwise equal to one batched
+    round a host step and to each job's solo run, the host step run once a
+    batched round.  Infomap's jobs converge at rounds 1 to 4, so its later
+    rounds run beside frozen jobs (CNM's all converge at round 2; the
+    engine-level test below freezes its jobs)."""
+    seeds = [11, 22, 33, 44]
+    cfg = dict(n_p=4, tau=0.5, delta=0.0, max_rounds=5, seed=0)
+    slabs, nc = _random_jobs()
+    reg = tcounters.get_registry()
+    calls0 = _host_calls(reg)
+    blocked, calls = _batch_runs(monkeypatch, 8, slabs, alg, cfg, nc, seeds)
+    host = _host_calls(reg) - calls0
+    single, none = _batch_runs(monkeypatch, 1, slabs, alg, cfg, nc, seeds)
+    assert len(calls) == 1 and not none
+    assert blocked.splits == single.splits == {}
+    rounds = [r.rounds for r in blocked]
+    if alg == "infomap":
+        assert rounds == [1, 2, 3, 4]
+    assert host == max(rounds)
+    for i, (a, b) in enumerate(zip(blocked, single)):
+        _assert_identical(a, b)
+        solo = run_consensus(slabs[i], get_detector(alg), ConsensusConfig(
+            algorithm=alg, **cfg), key=prng.key(seeds[i], "cpu"),
+            n_closure=nc)
+        _assert_identical(a, solo)
+
+
+def test_host_detector_batch_block_frozen_jobs_keep_their_state():
+    """One batched block of CNM jobs run for 2, 0, 1 and 2 rounds
+    (``max_iters``): each job equals its own rounds run eagerly one at a
+    time (slab, labels and every stats field), a job given no rounds keeps
+    its slab and labels, and the host step runs once a round that any
+    job runs."""
+    from fastconsensus_tpu_torch import engine, policy
+    from fastconsensus_tpu_torch.engine import (consensus_batch_block,
+                                                stats_to_host)
+
+    slabs, nc = _random_jobs()
+    slabs = [s.with_weights(torch.where(s.alive, 1.0, 0.0)) for s in slabs]
+    n_p, tau, delta = 4, 0.5, 0.0
+    det = get_detector("cnm")
+    keys = [prng.key(s, "cpu") for s in (3, 4, 5, 6)]
+    sing = torch.arange(slabs[0].n_nodes).expand(n_p, -1)
+    iters = [2, 0, 1, 2]
+    steps = []
+    orig = engine.HostDetect.__call__
+
+    def counted(self, k, runs):
+        steps.append(runs.tolist())
+        return orig(self, k, runs)
+
+    engine.HostDetect.__call__ = counted
+    try:
+        res = consensus_batch_block(
+            slabs, keys, [sing] * 4, [0] * 4, iters, [False] * 4,
+            [policy.INITIAL] * 4, False, [(-1, -1, -1)] * 4, det, n_p, tau,
+            delta, nc, warm=False)
+    finally:
+        engine.HostDetect.__call__ = orig
+    assert steps == [[True, False, True, True], [True, False, False, True]]
+    for j in range(4):
+        slab, lab, want = slabs[j], sing, []
+        for r in range(iters[j]):
+            slab, lab, st = consensus_round(
+                slab, prng.stream(keys[j], prng.STREAM_ROUND, r), det, n_p,
+                tau, delta, nc, prev_labels=lab)
+            want.append(stats_to_host([st])[0])
+            if bool(st.converged):
+                break
+        assert res.done[j] == len(want)
+        assert torch.equal(res.labels[j], lab)
+        for f in ("src", "dst", "weight", "alive"):
+            assert torch.equal(getattr(res.slabs[j], f), getattr(slab, f))
+        for got, st in zip(res.stats[j], want):
+            # a block without warm start marks each round cold, as the
+            # driver records a round without warm start
+            assert got.cold
+            for x, y in zip(got._replace(cold=0), st._replace(cold=0)):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+def test_host_detect_entry_matches_the_detector(alg):
+    """The C entry the card's host node calls (``fc_host_detect``), run
+    here on staged buffers of two jobs: a job whose flag is set gets
+    exactly the detector's labels from its slab and keys (alive slots
+    compacted in slot order, seeds from the key words), a job whose flag
+    is clear keeps its labels, and the counts follow."""
+    from fastconsensus_tpu_torch import native
+    from fastconsensus_tpu_torch.serve import bucketer
+
+    n_p = 3
+    padded = [bucketer.pad_to_bucket(e, n, device="cpu")
+              for e, n in _RINGS[:2]]
+    slabs = [s for s, _ in padded]
+    # a dead slot among the live ones: compaction must skip it
+    alive = slabs[0].alive.clone()
+    alive[3] = False
+    slabs[0] = dataclasses.replace(slabs[0], alive=alive)
+    keys = torch.cat([prng.partition_keys(prng.key(s, "cpu"), n_p)
+                      for s in (5, 6)])
+    fields = [torch.stack([getattr(s, f) for s in slabs]).contiguous()
+              for f in ("src", "dst", "weight", "alive")]
+    b, cap = fields[0].shape
+    n = slabs[0].n_nodes
+    labels = np.full((b, n_p, n), -7, dtype=np.int32)
+    runs = np.array([True, False])
+    keys_np = keys.numpy().copy()
+    host = [f.numpy() for f in fields]
+    args = native.HostDetectArgs(
+        detector=native.HOST_DETECTORS[f"{alg}_labels"], n_jobs=b,
+        n_nodes=n, n_p=n_p, capacity=cap, key_words=keys.shape[1],
+        src=host[0].ctypes.data, dst=host[1].ctypes.data,
+        weight=host[2].ctypes.data, alive=host[3].ctypes.data,
+        keys=keys_np.ctypes.data, runs=runs.ctypes.data,
+        labels=labels.ctypes.data, calls=0, detections=0)
+    native.host_detect(args)
+    want = get_detector(alg)(slabs[0], keys[:n_p])
+    np.testing.assert_array_equal(labels[0], want.numpy())
+    assert (labels[1] == -7).all()
+    assert (args.calls, args.detections) == (1, 1)
+    runs[:] = False
+    native.host_detect(args)
+    assert (args.calls, args.detections) == (1, 1)
+    np.testing.assert_array_equal(labels[0], want.numpy())
+
+
+def test_host_detector_block_runs_no_warm_rounds():
+    """A host detector has no warm variant: its block refuses one."""
+    from fastconsensus_tpu_torch.engine import RoundsBlock
+
+    edges, n = _karate()
+    slab = pack_edges(edges, n, device="cpu")
+    with pytest.raises(ValueError, match="no warm rounds"):
+        RoundsBlock(slab, get_detector("cnm"), 4, 0.7, 0.02, 16, warm=True)
+
+
+def test_no_host_read_admits_only_staged_buffers():
+    """The capture's host-read guard lets a copy into a staging buffer
+    registered for the capture through (it reaches the copy itself, which
+    fails on the meta tensor standing in for the card's) and refuses
+    every other copy to the host, a view of a registered buffer too."""
+    from fastconsensus_tpu_torch.ops.capture import (CaptureError,
+                                                     _NoHostRead)
+
+    src = torch.empty(8, dtype=torch.int64, device="meta")
+    staged = torch.zeros(8, dtype=torch.int64)
+    other = torch.zeros(8, dtype=torch.int64)
+    capture._local.staging = {staged.data_ptr(): staged.numel() * 8}
+    try:
+        with _NoHostRead():
+            with pytest.raises(CaptureError, match="host read"):
+                other.copy_(src)
+            with pytest.raises(CaptureError, match="host read"):
+                staged[:4].copy_(src[:4])
+            with pytest.raises((NotImplementedError, RuntimeError)) as e:
+                staged.copy_(src)
+            assert not isinstance(e.value, CaptureError)
+    finally:
+        capture._local.staging = None

@@ -1,7 +1,8 @@
 """The fused round block against the JAX package's, on the CPU: the
 port's block and the JAX package's fused run (``FCTPU_ROUNDS_BLOCK=8``
-on both sides) on karate, a forced-hybrid planted graph and LPM, and
-fcdelta through the block; and the port's lexsort ``insert_edges``
+on both sides) on karate, a forced-hybrid planted graph and LPM, the
+host C++ detectors (CNM, Infomap) solo and batched, and fcdelta through
+the block; and the port's lexsort ``insert_edges``
 against the reference's.
 
 Partitions, integer history fields and the slab are exact; the two float
@@ -211,6 +212,88 @@ def test_batch_block_matches_jax_batch(monkeypatch, alg, mode):
     for t, j, one in zip(tres, jres, runs[1]):
         _compare_to_jax(j, t)
         _assert_identical(t, one)
+
+
+def _email_standin():
+    """bench.py's emailEu stand-in (planted, n 1,005, 42 blocks)."""
+    from fastconsensus_tpu_torch.utils import synth
+
+    sizes = synth.heterogeneous_sizes(1005, 42, 0.85)
+    edges, _ = synth.planted_partition(1005, 42, 0.6, 0.02, seed=42,
+                                       sizes=sizes)
+    return np.asarray(edges), 1005
+
+
+@pytest.mark.parametrize("alg,graph", [("cnm", "karate"),
+                                       ("cnm", "emailEu"),
+                                       ("infomap", "karate")])
+def test_host_detector_block_matches_jax_block(monkeypatch, alg, graph):
+    """The host C++ detectors in the blocks: the port's blocked run
+    (``engine.HostDetect``) against the JAX package's fused run, which
+    reaches the same C++ through ``jax.pure_callback`` inside its jitted
+    block.  Tolerance: partitions, the integer history and the slab
+    exactly, the float round metrics at rtol 1e-5 (their sums run in
+    another order)."""
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "8")
+    monkeypatch.setenv("FCTPU_DETECT_CALL_MEMBERS", "0")
+    edges, n = _karate() if graph == "karate" else _email_standin()
+    cfg = dict(n_p=6 if graph == "karate" else 4,
+               tau=0.7 if alg == "cnm" else 0.6,
+               delta=0.02 if graph == "karate" else 0.0,
+               max_rounds=4, seed=2)
+    js = jpack(edges, n)
+    jreg = jcounters.get_registry()
+    j0 = _blocks_run(jreg)
+    jres = jrun(js, jdetector(alg), JConfig(algorithm=alg, **cfg))
+    assert _blocks_run(jreg) > j0, "the JAX package ran no fused block"
+    treg = tcounters.get_registry()
+    t0 = _blocks_run(treg)
+    tres = run_consensus(pack_edges(edges, n, device="cpu"),
+                         get_detector(alg),
+                         ConsensusConfig(algorithm=alg, **cfg))
+    assert _blocks_run(treg) > t0
+    _compare_to_jax(jres, tres)
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+def test_host_detector_batch_block_matches_jax_batch(monkeypatch, alg):
+    """The port's blocked ``run_consensus_batch`` of a host detector
+    against the JAX package's batch (which blocks at 8 by default and
+    runs its ``pure_callback`` once a job, in job order,
+    ``vmap_method="sequential"``) on three seeded graphs of one bucket,
+    n_p 3: partitions, rounds, convergence, splits and the integer
+    history exactly, the float round metrics at rtol 1e-5."""
+    from fastconsensus_tpu.consensus import run_consensus_batch as jbatch
+    from fastconsensus_tpu.serve import bucketer as jb
+    from fastconsensus_tpu_torch import engine
+    from fastconsensus_tpu_torch.consensus import run_consensus_batch
+    from fastconsensus_tpu_torch.serve import bucketer as tb
+
+    monkeypatch.setenv("FCTPU_DETECT_CALL_MEMBERS", "0")
+    monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "8")
+    graphs = [(_ring(34, 40, 7), 34), (_ring(40, 38, 5), 40),
+              (_ring(36, 44, 11), 36)]
+    seeds = [11, 22, 33]
+    cfg = dict(algorithm=alg, n_p=3, tau=0.5, delta=0.0, max_rounds=4,
+               seed=0)
+    padded = [tb.pad_to_bucket(e, n, device="cpu") for e, n in graphs]
+    slabs, nc = [s for s, _ in padded], padded[0][1].n_closure
+    jres = jbatch([jb.pad_to_bucket(e, n)[0] for e, n in graphs],
+                  jdetector(alg), JConfig(**cfg), n_closure=nc, seeds=seeds)
+    calls = []
+    run = engine.BatchBlock.run
+
+    def counted(self, *a, **k):
+        calls.append(a)
+        return run(self, *a, **k)
+
+    monkeypatch.setattr(engine.BatchBlock, "run", counted)
+    tres = run_consensus_batch(slabs, get_detector(alg),
+                               ConsensusConfig(**cfg), n_closure=nc,
+                               seeds=seeds)
+    assert calls and tres.splits == {} and len(jres) == len(tres)
+    for t, j in zip(tres, jres):
+        _compare_to_jax(j, t)
 
 
 def test_block_growth_inside_a_block_against_jax(monkeypatch):

@@ -853,3 +853,145 @@ def test_batch_block_on_card_equals_batched_rounds(card, monkeypatch, alg):
             assert torch.equal(getattr(a.graph, f), getattr(b.graph, f))
     assert widths[(str(card), "8")] == widths[(str(card), "1")]
     assert sum(widths[(str(card), "8")].values()) > 0
+
+
+def test_staging_exemption_admits_only_registered_buffers(card):
+    """A captured step may copy into a pinned staging buffer it registers
+    (``capture.stage_to_host``); the copy replays as a copy node.  Any
+    other copy to the host, into another pinned buffer or a slice of a
+    registered one, still raises ``CaptureError``, and the card stays
+    usable after."""
+    from fastconsensus_tpu_torch.ops import capture
+
+    d = torch.arange(8, device=card)
+    staged = torch.zeros(8, dtype=torch.int64, pin_memory=True)
+    other = torch.zeros(8, dtype=torch.int64, pin_memory=True)
+    step = capture.CapturedStep(lambda: capture.stage_to_host(staged, d * 2),
+                                card)
+    try:
+        assert staged.tolist() == [0] * 8          # the capture ran nothing
+        step.replay()
+        torch.cuda.synchronize()
+        assert staged.tolist() == list(range(0, 16, 2))
+    finally:
+        step.close()
+    for bad in (lambda: other.copy_(d, non_blocking=True),
+                lambda: (capture.stage_to_host(staged, d),
+                         staged[:4].copy_(d[:4], non_blocking=True)),
+                lambda: d.cpu()):
+        with pytest.raises(capture.CaptureError, match="host read"):
+            capture.CapturedStep(bad, card)
+    torch.cuda.synchronize()
+
+
+def test_host_node_replays_the_c_function(card):
+    """A host node (``capture.host_node``) runs ``fc_host_detect`` at
+    every replay, in stream order between the staging copies and the
+    copy back: one captured CNM detection of two jobs, the second
+    frozen, against the detector run eagerly."""
+    import dataclasses
+
+    from fastconsensus_tpu_torch.engine import HostDetect
+    from fastconsensus_tpu_torch.graph import pack_edges, unstack_slab
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.ops import capture
+    from fastconsensus_tpu_torch.utils import prng
+    from fastconsensus_tpu_torch.utils.synth import planted_partition
+
+    edges, _ = planted_partition(300, 6, 0.3, 0.01, seed=2)
+    slab = pack_edges(edges, 300, device=card)
+    det = get_detector("cnm")
+    fields = [getattr(slab, f).unsqueeze(0).repeat(2, 1).contiguous()
+              for f in ("src", "dst", "weight", "alive")]
+    stacked = dataclasses.replace(slab, src=fields[0], dst=fields[1],
+                                  weight=fields[2], alive=fields[3])
+    host = HostDetect(det, [unstack_slab(stacked, j) for j in range(2)],
+                      fields, 4)
+    keys = prng.partition_keys(prng.key(7, card), 8)
+    runs = torch.tensor([True, False], device=card)
+    step = capture.CapturedStep(lambda: host(keys, runs), card)
+    try:
+        assert host.calls == 0
+        step.replay()
+        torch.cuda.synchronize()
+        assert host.calls == 1 and host.args.detections == 1
+        assert torch.equal(host.labels[0], det(slab, keys[:4]))
+        assert not host.labels[1].any()
+        runs.fill_(False)
+        step.replay()
+        torch.cuda.synchronize()
+        assert host.calls == 1
+    finally:
+        step.close()
+        host.close()
+    with pytest.raises(RuntimeError, match="after close"):
+        host(keys, runs)
+
+
+@pytest.mark.parametrize("alg", ["cnm", "infomap"])
+def test_captured_host_detector_block_equals_eager_rounds(card, monkeypatch,
+                                                          alg):
+    """CNM and Infomap in the fused round block on the card (the host
+    C++ as a host node of the captured round) against one round a host
+    step on the card, exactly, and against the block on the CPU
+    (partitions and integer history); one capture, one host-node
+    detection a round."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import counters
+    from fastconsensus_tpu_torch.utils.synth import planted_partition
+
+    edges, _ = planted_partition(800, 16, 0.2, 0.01, seed=3)
+    cfg = ConsensusConfig(algorithm=alg, n_p=4, max_rounds=4, delta=0.0,
+                          tau=0.7 if alg == "cnm" else 0.6, seed=1)
+    reg = counters.get_registry()
+    runs, since = {}, {}
+    for dev, block in ((card, "8"), (card, "1"), ("cpu", "8")):
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", block)
+        base = reg.counters()
+        runs[(str(dev), block)] = run_consensus(
+            pack_edges(edges, 800, device=dev), get_detector(alg), cfg)
+        since[(str(dev), block)] = reg.counters_since(base)
+    fused, single, cpu = (runs[(str(card), "8")], runs[(str(card), "1")],
+                          runs[("cpu", "8")])
+    on_card = since[(str(card), "8")]
+    assert on_card.get("engine.setup_executables", 0) == 1
+    assert on_card.get("engine.host_detect.calls", 0) == fused.rounds
+    assert fused.history == single.history
+    np.testing.assert_array_equal(np.stack(fused.partitions),
+                                  np.stack(single.partitions))
+    for f in ("src", "dst", "weight", "alive"):
+        assert torch.equal(getattr(fused.graph, f), getattr(single.graph, f))
+    np.testing.assert_array_equal(np.stack(fused.partitions),
+                                  np.stack(cpu.partitions))
+    ints = ("n_alive", "n_unconverged", "n_closure_added", "n_repaired",
+            "capacity", "labels_changed", "cold")
+    assert [[h[k] for k in ints] for h in fused.history] == \
+        [[h[k] for k in ints] for h in cpu.history]
+
+
+def test_first_cublas_call_of_a_process_may_be_captured(card):
+    """A capture may hold the process's first matrix product (a batched
+    block without warm start captures before any eager round): the step
+    makes cuBLAS's handle before it captures."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from fastconsensus_tpu_torch.ops import capture\n"
+        "dev = torch.device('cuda', 0)\n"
+        "a = torch.ones(64, 64, device=dev)\n"
+        "out = torch.zeros(64, 64, device=dev)\n"
+        "s = capture.CapturedStep(lambda: torch.matmul(a, a, out=out), dev)\n"
+        "s.replay()\n"
+        "torch.cuda.synchronize()\n"
+        "print(float(out[0, 0]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent.parent)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "64.0"

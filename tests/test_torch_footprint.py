@@ -358,3 +358,145 @@ def test_meta_slabs_hold_no_memory():
     slab = ep.meta_slab(1 << 20, (1 << 23) + 16, d_hyb=64, hub_cap=4096)
     assert slab.src.device.type == "meta" and slab.capacity == (1 << 23) + 16
     assert np.isfinite(ep.slab_peak_bytes("detect", slab)["peak"])
+
+
+# -- F5: fused blocks' graph pools ---------------------------------------
+#
+# With FCTPU_ROUNDS_BLOCK asking for blocks the ``rounds`` and ``batch``
+# kinds are priced as the eager rounds' cache plus the captured graph's
+# pools (``entrypoints`` module docstring); on the card chip_smoke.py
+# phase footprint holds the sum to max_memory_reserved.  Unset, every
+# number is what it was before the pools were priced.
+
+# The serve defaults' numbers before the pools were priced (n_p 20).
+UNBLOCKED = {("rounds", 1024, 24576, 1): 1186312868,
+             ("rounds", 12288, 65536, 1): 2181055140,
+             ("batch", 1024, 24576, 4): 2174504912,
+             ("batch", 12288, 65536, 4): 2300645328,
+             ("detect", 12288, 65536, 1): 2181055124}
+
+
+@pytest.mark.parametrize("setting,device", [(None, "cuda"), ("1", "cuda"),
+                                            ("auto", "cpu")])
+def test_unblocked_model_and_ceiling_are_unchanged(monkeypatch, setting,
+                                                   device):
+    """FCTPU_ROUNDS_BLOCK unset, 1, or ``auto`` off the card: the model
+    and the chip ceilings are the numbers pinned before the pools were
+    priced, and no pool term appears."""
+    if setting is None:
+        monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", setting)
+    assert not ep.rounds_blocked(device)
+    for (kind, n, e, b), want in UNBLOCKED.items():
+        got = ep.serving_peak_bytes(kind, n, e, b=b, n_p=20, device=device)
+        assert got["peak"] == want, (kind, n, e, b)
+    spec = tfp.SurfaceSpec(device=device)
+    assert tfp.derive_chip_ceiling(None, spec) == 3145728
+    assert tfp.derive_chip_ceiling(2808094624, spec) == 65536
+    slab, bucket = _bucket_slab(*GRAPHS["rederived"])
+    t = ep.peak_terms("rounds", slab, n_p=6, n_closure=bucket.n_closure)
+    assert not {"eager_cache", "graph_pool", "body_pool"} & set(t)
+
+
+@pytest.mark.parametrize("kind", ["rounds", "batch"])
+def test_blocked_kinds_price_the_graph_pools(monkeypatch, kind):
+    """At FCTPU_ROUNDS_BLOCK=8 a blocked kind is the eager round's peak as
+    the allocator reserves it, plus the capture stream's small segment,
+    plus the IF bodies' pool (the round's carry, its own level and its
+    innermost bodies, each as reserved): every term positive and the
+    total above the unblocked one; the other kinds do not block."""
+    slab, bucket = _bucket_slab(*GRAPHS["rederived"])
+    b = 4 if kind == "batch" else 1
+    kw = dict(b=b, n_p=6, n_closure=bucket.n_closure)
+    plain = ep.peak_terms(kind, slab, **kw)
+    t = ep.peak_terms(kind, slab, blocked=True, **kw)
+    assert t["graph_pool"] == ep.SMALL_SEGMENT > 0
+    assert t["body_pool"] > 0 and t["eager_cache"] > plain["peak"]
+    assert t["eager_cache"] == ep.reserved_bytes(plain["peak"])
+    carry = 2 * b * (t["slab"] + t["labels"])
+    level = t["detect_state"] + t["detect_build"] + \
+        2 * t["detect_labels"] + t["tail"]
+    inner = max(t["detect_work"], t["tail"])
+    assert t["body_pool"] == sum(ep.reserved_bytes(x)
+                                 for x in (carry, level, inner))
+    assert t["peak"] == t["eager_cache"] + t["graph_pool"] + t["body_pool"]
+    assert t["peak"] >= plain["peak"]
+    for other in ("tail", "detect", "detect-batch"):
+        assert ep.peak_terms(other, slab, blocked=True, **kw) == \
+            ep.peak_terms(other, slab, **kw)
+    # as the allocator rounds: whole 2 MiB steps, one shared large
+    # segment and one small one over an eighth more than the bytes
+    assert ep.reserved_bytes(0) == 0
+    assert ep.reserved_bytes(1) == ep.ROUND_LARGE + ep.LARGE_SEGMENT + \
+        ep.SMALL_SEGMENT
+    assert ep.reserved_bytes(16 << 20) == (18 << 20) + ep.LARGE_SEGMENT + \
+        ep.SMALL_SEGMENT
+
+
+def test_blocked_ceiling_is_never_higher(monkeypatch):
+    """The ceiling under FCTPU_ROUNDS_BLOCK=8 (or ``auto`` on the card) is
+    at most the unblocked one at every budget, lower where the pools
+    push an edge class over, and ``auto`` prices the pools only for the
+    card."""
+    spec = tfp.SurfaceSpec(max_nodes=512, max_edges=1024, max_batch=2,
+                           n_p=4)
+    cpu = dataclasses.replace(spec, device="cpu")
+    monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    budgets = [tfp.edge_class_peak(e, spec) for e in tfp.edge_classes(spec)]
+    budgets += [2 * x for x in budgets] + [1 << 40]
+    plain = [tfp.derive_chip_ceiling(x, spec) for x in budgets]
+    for setting, sp in (("8", spec), ("auto", spec), ("auto", cpu)):
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", setting)
+        got = [tfp.derive_chip_ceiling(x, sp) for x in budgets]
+        if sp.device == "cpu":
+            assert got == plain
+            continue
+        assert all(g is None or (p is not None and g <= p)
+                   for g, p in zip(got, plain))
+        assert any(g != p for g, p in zip(got, plain))
+
+
+class _Stop:
+    """A ConsensusService stand-in: records its config and stops the
+    server's entry point before any worker starts."""
+
+    seen = []
+
+    def __init__(self, cfg):
+        _Stop.seen.append(cfg)
+
+    def start(self):
+        raise ValueError("stopped before the pool")
+
+
+@pytest.mark.parametrize("setting,device_arg,want", [
+    (None, "cpu", "covers"), ("8", "cpu", 128), ("auto", "cpu", "covers")])
+def test_serve_auto_ceiling_follows_the_block_setting(
+        monkeypatch, capsys, setting, device_arg, want):
+    """``serve --chip-max-edges auto`` at a 200 MB budget: unblocked, the
+    whole admissible ladder (max_edges 1024) fits one card, so auto exits
+    naming that; at FCTPU_ROUNDS_BLOCK=8 the pools leave 128 edges the
+    ceiling, which reaches the service; ``auto`` on the CPU does not
+    block, as its runs do not."""
+    from fastconsensus_tpu_torch.serve import server
+    from fastconsensus_tpu_torch.serve.__main__ import main
+
+    if setting is None:
+        monkeypatch.delenv("FCTPU_ROUNDS_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", setting)
+    monkeypatch.setattr(server, "ConsensusService", _Stop)
+    _Stop.seen = []
+    rc = main(["--device", device_arg, "--devices", "2", "--huge-devices",
+               "1", "--port", "0", "--quiet", "--max-nodes", "512",
+               "--max-edges", "1024", "--max-batch", "2", "--warm-config",
+               '{"n_p": 4}', "--chip-max-edges", "auto", "--hbm-bytes",
+               str(200_000_000)])
+    err = capsys.readouterr().err
+    assert rc == 2
+    if want == "covers":
+        assert "covers every admissible bucket" in err and not _Stop.seen
+    else:
+        assert "stopped before the pool" in err
+        assert [c.chip_max_edges for c in _Stop.seen] == [want]
