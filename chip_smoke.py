@@ -276,6 +276,26 @@ processes, fresh ones, and report their counts in ``/metricsz``
 traffic and must find launches.  The second-to-last
 lines are the kernels' JSON record and the card's name and power limit;
 the last line is the device record.
+
+Optional phases, run only where ``--phases`` names them: ``profile``
+(device time by kernel of one cell, ``--profile-cell``) and
+``spanclock``: the device-timed tracer's clock on the card.  (1) One
+warm consensus round of the planted 5k graph (louvain, n_p 8) under
+``Tracer(device_timed=True)`` and a profiler session of the host's and
+the card's records, followed by the stats readback's synchronize: for
+each of the round's ``detect`` and ``tail`` spans, the card's records
+its host span launched (joined by the profiler's correlation ids) must
+lie inside its device range, which must start no earlier than the host
+span; the gaps from the range's ends to its first and last records
+(the card idle, waiting on the host) printed.  (2) Three times, a
+``tail`` span over 50 kernels queued behind a sleeping kernel: its
+first and last records within 50 us of its range's ends, on either
+side (the card's events and the profiler's records are put on the Unix
+clock apart).  (3) 50
+kernels' card records under a disabled and a device-timed tracer: 50
+both; one round's records, untraced and device-timed twice, printed
+(they vary from run to run).  (4) The host's cost of a span: disabled, host-only and
+device-timed.
 """
 
 from __future__ import annotations
@@ -4047,6 +4067,163 @@ def smi_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
+def phase_spanclock(state):
+    """The device-timed tracer's ranges against the profiler's raw
+    records (module docstring, optional phases).  Every reading is
+    printed before the first failed check is raised."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastconsensus_tpu_torch.engine import consensus_round, stats_to_host
+    from fastconsensus_tpu_torch.graph import pack_edges
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import Tracer, use_tracer
+    from fastconsensus_tpu_torch.utils import prng
+
+    edges, _ = planted_graph(5000, 40, 0.08, 0.0004, seed=7)
+    slab = pack_edges(edges, 5000, device=DEVICE)
+    slab = slab.with_weights(torch.where(slab.alive, 1.0, 0.0))
+    det, n_closure = get_detector("louvain"), int(slab.num_alive())
+    cuda = torch.autograd.DeviceType.CUDA
+    faults = []
+
+    def one_round(seed):
+        _, _, st = consensus_round(slab, prng.key(seed, DEVICE), det, 8,
+                                   0.2, 0.02, n_closure)
+        stats_to_host([st])
+
+    def card_records(prof):
+        return [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda]
+
+    # (1) a round's records under its spans, the card idle between
+    # launches: each record inside its span's device range
+    one_round(1)
+    torch.cuda.synchronize()
+    tracer = Tracer(device_timed=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with use_tracer(tracer):
+            one_round(2)
+    spans = tracer.spans()
+    host_at = {e.correlation_id(): e.start_ns()
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() != cuda and e.correlation_id() > 0}
+    dev = [(e.linked_correlation_id(), e.start_ns(),
+            e.start_ns() + e.duration_ns()) for e in card_records(prof)]
+    for name in ("detect", "tail"):
+        (sp,) = [s for s in spans if s["name"] == name]
+        h0, h1 = sp["host"]
+        d0, d1 = sp["device"]
+        mine = [r for r in dev if h0 <= host_at.get(r[0], -1) <= h1]
+        if not mine:
+            faults.append(f"{name}: no card record joined to its host span "
+                          f"({len(dev)} card records, {len(host_at)} host)")
+            continue
+        first = min(r[1] for r in mine)
+        last = max(r[2] for r in mine)
+        outside = [r for r in mine if r[1] < d0 or r[2] > d1]
+        log(f"spanclock {name}: {len(mine)} records; host "
+            f"{(h1 - h0) / 1e3:.1f} us, device {(d1 - d0) / 1e3:.1f} us; "
+            f"device start - host start {(d0 - h0) / 1e3:.1f} us; first "
+            f"record {(first - d0) / 1e3:.1f} us after the range's start, "
+            f"last {(d1 - last) / 1e3:.1f} us before its end (the card "
+            f"idle there, waiting on the host); outside {len(outside)}")
+        if outside:
+            faults.append(f"{name}: records outside its device range: "
+                          f"{outside[:3]}")
+        if d0 < h0:
+            faults.append(f"{name}: device range starts "
+                          f"{(h0 - d0) / 1e3:.1f} us before its host span")
+
+    # (2) the clock alone: a tail span whose kernels queue behind a
+    # sleeping kernel run back to back from its start event to its end
+    # event, so its first and last records lie at its range's ends
+    x = torch.zeros(1 << 20, device=DEVICE)
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        tracer = Tracer(device_timed=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000_000)
+            with tracer.span("tail"):
+                for _ in range(50):
+                    x.add_(1.0)
+            torch.cuda.synchronize()
+        (sp,) = tracer.spans()
+        (h0, _), (d0, d1) = sp["host"], sp["device"]
+        recs = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                      for e in card_records(prof))
+        if len(recs) != 51:
+            faults.append(f"clock: {len(recs)} records, expected the sleep "
+                          f"and 50 adds")
+            break
+        lead = (recs[1][0] - d0) / 1e3
+        trail = (d1 - max(b for _, b in recs[1:])) / 1e3
+        log(f"spanclock clock {attempt}: 50 queued kernels; first {lead:.1f}"
+            f" us after the range's start, last {trail:.1f} us before its "
+            f"end (negative: outside); device start - host start "
+            f"{(d0 - h0) / 1e3:.1f} us")
+        # the events and the profiler's records reach the Unix clock
+        # apart, so each end is held to 50 us either way
+        if not (abs(lead) <= 50 and abs(trail) <= 50):
+            faults.append(f"clock {attempt}: the range's ends {lead:.1f} / "
+                          f"{trail:.1f} us from the records' (limit 50 us)")
+        if d0 < h0:
+            faults.append(f"clock {attempt}: device range starts before its"
+                          f" host span")
+
+    # (3) the events add no device record: the queued kernels with the
+    # tracer disabled and device-timed (the same records, one by one);
+    # one round's records, which vary from run to run with the sweeps'
+    # float sums, printed beside
+    counts = []
+    for timed in (False, True):
+        tracer = Tracer(device_timed=timed, enabled=timed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with tracer.span("tail"):
+                for _ in range(50):
+                    x.add_(1.0)
+            torch.cuda.synchronize()
+        counts.append(len(card_records(prof)))
+    rounds = []
+    for timed in (False, True, False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with use_tracer(Tracer(device_timed=True) if timed
+                            else Tracer(enabled=False)):
+                one_round(3)
+            torch.cuda.synchronize()
+        rounds.append(len(card_records(prof)))
+    log(f"spanclock records of 50 adds: {counts[0]} untraced, {counts[1]} "
+        f"device-timed; of one round, untraced / device-timed twice: "
+        f"{rounds}")
+    if counts != [50, 50]:
+        faults.append(f"device-timed spans changed the card's records: "
+                      f"{counts}")
+
+    # (4) what a span costs the host: host-only spans (a sweep's) and
+    # device-timed ones (a tail's, two events each), and a disabled
+    # tracer's
+    for label, tr, name, n in (("disabled", Tracer(enabled=False), "sweep",
+                                100_000),
+                               ("host-only", Tracer(), "sweep", 20_000),
+                               ("device-timed", Tracer(device_timed=True),
+                                "tail", 20_000)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            with tr.span(name, it=i):
+                pass
+        dt = time.perf_counter() - t0
+        tr.spans()
+        log(f"spanclock cost: {label} span {dt / n * 1e6:.2f} us")
+    for fault in faults:
+        log(f"spanclock FAULT {fault}")
+    check(not faults, f"{len(faults)} fault(s); the first: "
+                      f"{faults[0] if faults else ''}")
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels,
           "memory": phase_memory, "karate": phase_karate,
           "gpu_cpu": phase_gpu_cpu,
@@ -4060,7 +4237,7 @@ PHASES = {"build": phase_build, "kernels": phase_kernels,
           "recovery": phase_recovery, "trace": phase_trace,
           "delta": phase_delta, "batch": phase_batch, "serve": phase_serve,
           "fleet": phase_fleet, "footprint": phase_footprint}
-EXTRA_PHASES = {"profile": phase_profile}
+EXTRA_PHASES = {"profile": phase_profile, "spanclock": phase_spanclock}
 
 
 def main(argv=None) -> int:

@@ -51,7 +51,7 @@ from fastconsensus_tpu_torch.graph import (GraphSlab, _statics,
                                            pack_edges, stack_slabs)
 from fastconsensus_tpu_torch.models.base import Detector
 from fastconsensus_tpu_torch.obs import counters as obs_counters
-from fastconsensus_tpu_torch.obs.tracer import get_tracer
+from fastconsensus_tpu_torch.obs.tracer import get_tracer, traced
 from fastconsensus_tpu_torch.parallel.sharding import (ENSEMBLE_AXIS, Mesh,
                                                        ShardedSlab,
                                                        gather_labels,
@@ -361,6 +361,7 @@ def batch_block_size(dev: torch.device) -> int:
     return BLOCK_MAX if block is None else block
 
 
+@traced("consensus")
 def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
                   key: Optional[torch.Tensor] = None,
                   checkpoint_path: Optional[str] = None,
@@ -418,8 +419,9 @@ def run_consensus(slab: GraphSlab, detect: Detector, config: ConsensusConfig,
     checkpoint/resume.
 
     fcobs: spans on the ambient tracer (a shared no-op unless a caller
-    set one, so the hooks cost attribute checks) and counters on the
-    process registry, at the reference's places."""
+    set one, so the hooks cost attribute checks), under the root span
+    ``consensus``, and counters on the process registry, at the
+    reference's places."""
     dev = slab.device
     tracer = get_tracer()
     obs_reg = obs_counters.get_registry()
@@ -873,8 +875,21 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
     ``config.seed`` for every job); ``keys`` passes run keys instead.  No
     checkpoint/resume, no fcdelta masks.  The split count is logged on the
     ``fastconsensus_tpu_torch`` logger; ``BatchResults.splits`` maps each
-    split job to the reason.
+    split job to the reason.  fcobs: under the root span
+    ``consensus_batch`` (arg ``b``), a ``batch_round`` span a batched round
+    (args ``mode``, ``active``: the jobs it runs, ``rounds``: their least
+    and greatest round) or ``batch_block`` a block, then
+    ``batch_final_detect``; counters ``batch.rounds`` and
+    ``batch.job_rounds`` (the jobs' rounds run in them).
     """
+    with get_tracer().span("consensus_batch", b=len(slabs)):
+        return _run_consensus_batch(slabs, detect, config, n_closure, seeds,
+                                    keys)
+
+
+def _run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
+                         config: ConsensusConfig, n_closure: int, seeds,
+                         keys) -> BatchResults:
     B = len(slabs)
     if B < 1:
         raise ValueError("run_consensus_batch needs at least one slab")
@@ -974,6 +989,8 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
                  else (-1, -1, -1) for i in range(B)])
         obs_counters.host_sync("batch_block_stats")
         obs_reg.inc("batch.blocks")
+        obs_reg.inc("batch.rounds", max(res.done[i] for i in idx))
+        obs_reg.inc("batch.job_rounds", sum(res.done[i] for i in idx))
         for i in idx:
             done = res.done[i]
             for st in res.stats[i][:done]:
@@ -997,8 +1014,10 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
             init = [labels[i] for i in idx]
         elif mode == "cold":
             init = [sing] * len(idx)
-        with tracer.step_span("batch_block", int(rounds[idx].min()), b=B,
-                              mode=mode):
+        with tracer.step_span("batch_round", int(rounds[idx].min()), b=B,
+                              mode=mode, active=len(idx),
+                              rounds=[int(rounds[idx].min()),
+                                      int(rounds[idx].max())]):
             out = consensus_batch_round(
                 [cur[i] for i in idx],
                 [prng.stream(keys[i], prng.STREAM_ROUND, int(rounds[i]))
@@ -1012,6 +1031,8 @@ def run_consensus_batch(slabs: List[GraphSlab], detect: Detector,
             host = stats_to_host([st for _, _, st in out])
         obs_counters.host_sync("batch_block_stats")
         obs_reg.inc("batch.blocks")
+        obs_reg.inc("batch.rounds")
+        obs_reg.inc("batch.job_rounds", len(idx))
         for i, (slab_new, lab, _), st in zip(idx, out, host):
             if config.auto_grow and int(st.n_dropped) > 0:
                 # run_consensus would grow the slab and replay

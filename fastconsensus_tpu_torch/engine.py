@@ -96,7 +96,9 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
     """Everything after detection: co-membership -> threshold ->
     convergence -> closure -> repair.  ``sampler`` picks the wedge
     sampler: "csr" (argsort of the directed edges, uniform anchors) or
-    "scatter" (sort-free partner draws); the two draw different wedges."""
+    "scatter" (sort-free partner draws); the two draw different wedges.
+    Off the captured path the convergence test is a host read
+    (``host_sync.tail_converged``)."""
     dev = slab.device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     counts = cops.comembership_counts(labels, slab.src, slab.dst)
@@ -139,8 +141,11 @@ def consensus_tail(slab: GraphSlab, labels: torch.Tensor,
         slab = dataclasses.replace(slab, src=outs[0], dst=outs[1],
                                    weight=outs[2], alive=outs[3])
         n_closed, n_repaired, n_dropped = outs[4:]
-    elif not bool(st_mid.converged):
-        slab, n_closed, n_repaired, n_dropped = closure(slab)
+    else:
+        # the eager tail's one host read: closure runs when unconverged
+        obs_counters.host_sync("tail_converged")
+        if not bool(st_mid.converged):
+            slab, n_closed, n_repaired, n_dropped = closure(slab)
     st_end = cops.convergence_stats(slab, n_p, delta)
     n_overflow = n_hub_overflow = n_agg_overflow = zero
     if slab.d_cap > 0:
@@ -351,18 +356,25 @@ def consensus_batch_round(slabs: List[GraphSlab], keys: List[torch.Tensor],
     :func:`consensus_round` with round key ``keys[b]``, init
     ``init_labels[b]`` (None: no init for any) and ``align[b]``, its
     members all detected in one stream (:func:`detect_stacked`) and the
-    tail run per graph.  Each graph's result is its solo round's."""
+    tail run per graph.  Each graph's result is its solo round's.  Spans
+    ``detect`` and a ``tail`` per graph (arg ``job``: its slot in the
+    stacked stream), as :func:`consensus_round`'s."""
+    tracer = get_tracer()
     derived = [round_keys(k, n_p, a) for k, a in zip(keys, align)]
-    labels = detect_stacked(
-        detect, stack_slabs(slabs), torch.cat([d for d, _ in derived], dim=0),
-        None if init_labels is None else torch.cat(init_labels, dim=0))
+    with tracer.span("detect"):
+        labels = detect_stacked(
+            detect, stack_slabs(slabs),
+            torch.cat([d for d, _ in derived], dim=0),
+            None if init_labels is None else torch.cat(init_labels, dim=0))
     out = []
     for b, (slab, (_, k_closure)) in enumerate(zip(slabs, derived)):
         lab = labels[b * n_p:(b + 1) * n_p]
-        slab, stats = consensus_tail(slab, lab, k_closure, n_p, tau, delta,
-                                     n_closure, closure_tau=closure_tau,
-                                     prev_labels=prev_labels[b],
-                                     sampler=sampler)
+        with tracer.span("tail", job=b):
+            slab, stats = consensus_tail(slab, lab, k_closure, n_p, tau,
+                                         delta, n_closure,
+                                         closure_tau=closure_tau,
+                                         prev_labels=prev_labels[b],
+                                         sampler=sampler)
         out.append((slab, lab, stats))
     return out
 
@@ -370,10 +382,11 @@ def consensus_batch_round(slabs: List[GraphSlab], keys: List[torch.Tensor],
 def stats_to_host(stats: List[RoundStats]) -> List[RoundStats]:
     """Every field of every round's stats in one device-to-host copy, as
     numpy (float64 holds each int and float32 field exactly)."""
-    # fcheck: ok=f64-dtype (one host copy of every stats field: float64
-    # holds each int32 count and float32 value exactly)
-    flat = torch.cat([t.reshape(-1).to(torch.float64)
-                      for st in stats for t in st]).cpu().numpy()
+    with get_tracer().span("stats_readback"):
+        # fcheck: ok=f64-dtype (one host copy of every stats field:
+        # float64 holds each int32 count and float32 value exactly)
+        flat = torch.cat([t.reshape(-1).to(torch.float64)
+                          for st in stats for t in st]).cpu().numpy()
     out, at = [], 0
     for st in stats:
         fields = []
@@ -1189,8 +1202,7 @@ def _detect_chunked(detect: Detector, slab: GraphSlab, keys: torch.Tensor,
                 for rep, kb, i in zip(reps, shard_keys(ks, mesh), ib)]
 
     if members >= n_p:
-        with tracer.span("detect_dispatch", members=n_p):
-            return call(keys, init_labels)
+        return call(keys, init_labels)
     if mesh is not None and init_labels is not None:
         init_labels = gather_labels(init_labels, mesh)
     n_calls = -(-n_p // members)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from fastconsensus_tpu_torch.graph import GraphSlab
+from fastconsensus_tpu_torch.obs import counters as obs_counters
+from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.sizing import members_per_call
 
@@ -67,7 +69,11 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
     state keeps their leading axis: each graph's own strengths, 2m and
     rows) and ``prep.members_of(graph_of_member)`` hands each chunk of
     members its graph's state; the bytes that copies per member
-    (``prep.member_copy_bytes()``) count against the chunk's budget."""
+    (``prep.member_copy_bytes()``) count against the chunk's budget.
+
+    fcobs: a ``member_chunk`` span a chunk (args ``chunk``, ``members``)
+    and the counter ``detect.member_chunks``, where the host dispatches
+    it (a captured block counts its capture, not its replays)."""
 
     def layout(slab: GraphSlab, n_members: int, prep):
         """``(graph of each member on the device and on the host, bytes
@@ -95,13 +101,17 @@ def ensemble(run: Callable, prepare: Callable[[GraphSlab], object],
         # a batched block's sweep mask (ops/capture.py), chunked alike
         mask = capture.sweeping_members(n_keys) if capture.active() \
             else None
+        tracer = get_tracer()
         parts = []
         for s in range(0, n_keys, chunk):
             init = None if init_labels is None else init_labels[s:s + chunk]
             p = prep if graph_of is None else prep.members_of(
                 graph_of[s:s + chunk], graph_rows[s:s + chunk])
-            with capture.sweeping(None if mask is None
-                                  else mask[s:s + chunk]):
+            obs_counters.get_registry().inc("detect.member_chunks")
+            with tracer.span("member_chunk", chunk=s // chunk,
+                             members=min(chunk, n_keys - s)), \
+                    capture.sweeping(None if mask is None
+                                     else mask[s:s + chunk]):
                 parts.append(run(p, keys[s:s + chunk], init))
         return torch.cat(parts, dim=0)
 

@@ -44,6 +44,8 @@ import torch
 from fastconsensus_tpu_torch.analysis import footprint
 from fastconsensus_tpu_torch.graph import GraphSlab
 from fastconsensus_tpu_torch.models.base import Detector, ensemble, row_bytes
+from fastconsensus_tpu_torch.obs import counters as obs_counters
+from fastconsensus_tpu_torch.obs.tracer import get_tracer
 from fastconsensus_tpu_torch.ops import capture
 from fastconsensus_tpu_torch.ops import dense_adj as da
 from fastconsensus_tpu_torch.ops import row_kernels
@@ -622,8 +624,10 @@ class Prepared:
         if self.w_rows is None:
             out.W = _take(self.W, idx)
         else:
-            out.w_rows = self.w_rows[
-                idx.cpu().numpy() if host_idx is None else host_idx]
+            if host_idx is None:
+                obs_counters.host_sync("member_take")
+                host_idx = idx.cpu().numpy()
+            out.w_rows = self.w_rows[host_idx]
         out.adj, out.hyb = _take(self.adj, idx), _take(self.hyb, idx)
         out.coin_rows = _take(self.coin_rows, idx)
         if self.fused is not None:
@@ -687,7 +691,13 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
     ``theta`` + ``singleton_only`` is Leiden's refinement mode: only
     nodes whose community is a singleton at sweep start may move, and a
     joiner/anchor coin keeps every move's target group stationary for the
-    sweep, so groups grow by accretion and stay internally connected."""
+    sweep, so groups grow by accretion and stay internally connected.
+
+    fcobs, off the captured path: each sweep's exit test is a host read
+    (``host_sync.sweep_exit``, span ``sweep_exit``: one a sweep, and one
+    more where the loop stops before ``max_sweeps``); each sweep is a
+    ``sweep`` span (args ``it``, ``active``) and counts ``detect.sweeps``
+    and its members ``detect.member_sweeps``."""
     n = slab.n_nodes
     dev = slab.device
     if keys.dim() == 1:
@@ -734,21 +744,30 @@ def local_move(slab: GraphSlab, keys: torch.Tensor,
 
             capture.when(act.any(), run, (labels, n_want))
         return labels
+    tracer = get_tracer()
+    reg = obs_counters.get_registry()
     for it in range(max_sweeps):
-        # fcheck: ok=sync-in-loop (the sweep loop's exit test: one
-        # deliberate sync a sweep, which also sizes the next sweep's rows)
-        act = torch.nonzero(n_want >= stop_at).flatten()
-        if act.numel() == 0:
+        with tracer.span("sweep_exit", it=it):
+            # fcheck: ok=sync-in-loop (the sweep loop's exit test: one
+            # deliberate sync a sweep, which also sizes the next sweep's
+            # rows)
+            act = torch.nonzero(n_want >= stop_at).flatten()
+        obs_counters.host_sync("sweep_exit")
+        n_act = act.numel()
+        if n_act == 0:
             break
-        every = act.numel() == m
-        lab = labels if every else labels[act]
-        p = prep if every else prep.take(act)
-        new, nw = sweep(it, lab, p, keys if every else keys[act])
-        if every:
-            labels, n_want = new, nw
-        else:
-            labels[act] = new
-            n_want[act] = nw
+        reg.inc("detect.sweeps")
+        reg.inc("detect.member_sweeps", n_act)
+        with tracer.span("sweep", it=it, active=n_act):
+            every = n_act == m
+            lab = labels if every else labels[act]
+            p = prep if every else prep.take(act)
+            new, nw = sweep(it, lab, p, keys if every else keys[act])
+            if every:
+                labels, n_want = new, nw
+            else:
+                labels[act] = new
+                n_want[act] = nw
     return labels
 
 

@@ -2,29 +2,45 @@
 ``fastconsensus_tpu/obs`` on PyTorch.
 
 * **obs/tracer.py** — nested host-side spans (wall + CPU time,
-  thread-safe, a shared no-op when disabled).  ``run_consensus`` opens
-  ``round`` and ``rounds_block`` (step spans, a block's keyed by its
-  first round), ``setup_executables`` (a block's CUDA-graph capture),
-  ``detect``, ``tail``, ``grow_and_replay``, ``checkpoint`` and
-  ``final_detect``; the chunked detection
-  ``detect_dispatch`` / ``detect_chunk``; ``run_consensus_batch``
-  ``batch_block`` / ``batch_final_detect``.
+  thread-safe, a shared no-op when disabled), on the Unix clock through
+  ``Tracer.spans()``; a device-timed tracer gives the layer boundaries
+  (``tracer.DEVICE_TIMED``) a device range too.  ``run_consensus`` is the
+  root ``consensus``, over ``round`` and ``rounds_block`` (step spans, a
+  block's keyed by its first round), ``setup_executables`` (a block's
+  CUDA-graph capture), ``detect``, ``tail``, ``stats_readback``,
+  ``grow_and_replay``, ``checkpoint`` and ``final_detect``;
+  ``run_consensus_batch`` the root ``consensus_batch``, over
+  ``batch_round`` (an eager batched round: ``detect``, a ``tail`` per
+  job, ``stats_readback``), ``batch_block`` (a block) and
+  ``batch_final_detect``.  Inside detection: the persisted driver chunks
+  ``detect_chunk``, the member chunks ``member_chunk``
+  (``models/base.ensemble``), and a Louvain sweep's ``sweep`` and its
+  exit read ``sweep_exit`` (``models/louvain.local_move``, eager path).
+  Round-level spans are mirrored into the flight ring
+  (``tracer.FLIGHT_MIRRORED``).
 * **obs/counters.py** — always-on counter/gauge/series registry: round
-  stats folded per round, deliberate host syncs (``round_stats``, a
-  fused block's ``block_stats``, ``final_labels``, ``checkpoint``,
-  ``budget_histogram``, ``detect_chunk``), ``round.seconds`` (a block's
-  rounds each observe the block's average) and ``rounds_block.seconds``,
-  the captures (``engine.setup_executables`` and its ``.seconds``),
-  detect-chunk counts and latency, device memory from
-  ``torch.cuda.memory_stats``.
+  stats folded per round, the driver's deliberate host reads and the
+  eager Louvain round's own (``host_sync.*``: ``round_stats``, a fused block's ``block_stats``,
+  ``batch_block_stats``, ``final_labels``, ``batch_final_labels``,
+  ``checkpoint``, ``budget_histogram``, ``detect_chunk``, a sweep's exit
+  test ``sweep_exit``, a batched sweep's row read ``member_take``, an
+  eager tail's convergence test ``tail_converged``),
+  ``round.seconds`` (a block's rounds each observe the block's average)
+  and ``rounds_block.seconds``, the captures
+  (``engine.setup_executables`` and its ``.seconds``), detection's work
+  (``detect.member_chunks`` on every path, ``detect.chunks`` the
+  persisted ones, ``detect.sweeps``, ``detect.member_sweeps``), the
+  batch's occupancy (``batch.rounds``, ``batch.job_rounds``), device
+  memory from ``torch.cuda.memory_stats``.
 * **obs/device.py** — ``torch.profiler`` sessions, ``record_function``
   annotations and the merge of the profiler's Chrome trace into the
   fcobs Perfetto blob (``cli.py --trace --profile-dir``).
 * **obs/export.py**, **obs/roundlog.py**, **obs/flight.py**,
   **obs/latency.py**, **obs/postmortem.py** — the reference's modules,
-  unchanged apart from the package name: Perfetto/JSONL export and the
-  rotated-chain reader, the round log, the flight recorder, latency
-  histograms and post-mortem bundles.
+  unchanged apart from the package name (the round log without its
+  ``phase_span``): Perfetto/JSONL export and the rotated-chain reader,
+  the round log, the flight recorder, latency histograms and
+  post-mortem bundles.
 * **obs/quality.py** — the device half of fcqual, computed in the tail.
 
 The compile guard's ``xla.compiles*`` have no counterpart here: eager
@@ -46,8 +62,7 @@ from fastconsensus_tpu_torch.obs.flight import (  # noqa: F401
     FlightRecorder, get_flight_recorder)
 from fastconsensus_tpu_torch.obs.latency import (  # noqa: F401
     LatencyHistogram, LatencyRegistry, get_latency_registry)
-from fastconsensus_tpu_torch.obs.roundlog import (  # noqa: F401
-    RoundLog, phase_span)
+from fastconsensus_tpu_torch.obs.roundlog import RoundLog  # noqa: F401
 from fastconsensus_tpu_torch.obs.tracer import (  # noqa: F401
     Tracer, get_tracer, set_tracer, traced, use_tracer)
 
@@ -57,5 +72,5 @@ __all__ = [
     "device_memory", "record_device_memory",
     "LatencyHistogram", "LatencyRegistry", "get_latency_registry",
     "FlightRecorder", "get_flight_recorder",
-    "RoundLog", "phase_span",
+    "RoundLog",
 ]

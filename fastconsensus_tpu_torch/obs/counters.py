@@ -10,9 +10,10 @@ from exactly this).
 Three kinds of signal:
 
 * **counters** — monotonically increasing ints (``inc``): consensus
-  rounds, deliberate host-sync crossings (:func:`host_sync` — called at
-  every ``# fcheck: ok=sync-in-loop``-pragma'd readback in engine.py /
-  consensus.py), closure/repair edge totals, regrow events;
+  rounds, host-sync crossings (:func:`host_sync` — called at every
+  ``# fcheck: ok=sync-in-loop``-pragma'd readback in engine.py /
+  consensus.py and at the eager Louvain round's reads), closure/repair
+  edge totals, regrow events;
 * **gauges** — last-write-wins floats (``gauge``): slab capacity, device
   memory (:func:`record_device_memory`, from ``torch.cuda.memory_stats``);
 * **series** — observed samples (``observe``) summarized on demand
@@ -200,10 +201,12 @@ def get_registry() -> ObsRegistry:
 
 
 def host_sync(tag: str, n: int = 1) -> None:
-    """Count a deliberate host-device sync crossing.
+    """Count a host-device sync crossing.
 
     Called next to every deliberate device-to-host readback or
-    synchronize in the driver (engine.py / consensus.py), so a trace can
+    synchronize in the driver (engine.py / consensus.py) and next to the
+    eager Louvain round's own reads (a sweep's exit test, a batched
+    sweep's row read, the tail's convergence test), so a trace can
     separate "the engine started syncing per item" from "the device got
     slower".
     """

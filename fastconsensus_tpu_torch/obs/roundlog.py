@@ -1,24 +1,18 @@
-"""fcobs round log + phase spans: the folded-in utils/trace.py surface.
+"""fcobs round log: the reference's ``obs/roundlog.py`` without its
+``phase_span``, which nothing in the port calls.
 
-Pre-fcobs, ``utils/trace.py`` carried two host-timing duplicates of what
-the observability subsystem now owns: ``RoundTracer`` (an ``on_round``
-hook keeping per-round records, logging, and an optional JSONL sidecar)
-and ``phase_timer`` (a wall-clock phase context).  Their fcobs
-equivalents live here — same behavior, but wired into the subsystem:
-:class:`RoundLog` marks each round as an instant on the ambient span
-tracer (visible in ``--trace`` Perfetto output), and :func:`phase_span`
-times through a real fcobs span, so phase timings land in the same
-artifact as everything else.  ``utils/trace.py`` keeps thin deprecation
-shims so existing callers and ``runs/`` scripts don't break.
+:class:`RoundLog` is an ``on_round`` hook keeping per-round records,
+logging, and an optional JSONL sidecar, and marks each round as an
+instant on the ambient span tracer (visible in ``--trace`` Perfetto
+output).
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
-# fcheck: ok=sync-in-loop (host wall-clock reads for round/phase timing;
-# no device values involved)
+# fcheck: ok=sync-in-loop (host wall-clock reads for round timing; no
+# device values involved)
 import time
 from typing import Dict, List, Optional
 
@@ -67,18 +61,3 @@ class RoundLog:
             with open(self._jsonl_path, "a") as fh:
                 fh.write(json.dumps(rec) + "\n")
 
-
-@contextlib.contextmanager
-def phase_span(name: str, sink: Optional[Dict[str, float]] = None,
-               level: int = logging.DEBUG):
-    """Time a host-side phase (pack, rounds, write-out) as an fcobs span
-    on the ambient tracer, log it, and accumulate into ``sink``."""
-    t0 = time.perf_counter()
-    with get_tracer().span(f"phase.{name}"):
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            logger.log(level, "phase %s: %.3fs", name, dt)
-            if sink is not None:
-                sink[name] = sink.get(name, 0.0) + dt

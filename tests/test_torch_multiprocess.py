@@ -63,6 +63,11 @@ CFG = {"karate": dict(n_p=4, tau=0.5, delta=0.1, seed=7, max_rounds=4,
 # forced hybrid rows: the plain row_totals runs in each detecting rank
 ENV = {"karate": {}, "hybrid": {"FCTPU_MOVE_PATH": "hybrid"}}
 CK_CFG = dict(n_p=4, seed=3, delta=0.0, closure_sampler="scatter")
+# counters of the work a process runs for its own shards (one-process
+# mesh: every shard's), not of the driver's steps every rank takes
+SHARD_WORK = ("detect.sweeps", "detect.member_sweeps", "detect.member_chunks",
+              "host_sync.sweep_exit", "host_sync.member_take",
+              "host_sync.total")
 # axis layouts of the collectives: shard owners, some with an idle rank
 COLL_LAYOUTS = {2: [[0, 1], [0, 0, 1], [0, 0], [1, 0, 1]],
                 4: [[0, 1, 2, 3], [0, 1], [0, 0, 1, 2], [3, 2, 1, 0, 0]]}
@@ -320,7 +325,8 @@ def test_checkpoint_and_resume_across_two_ranks(tmp_path, launches,
     resumes to round 4 equal to the uninterrupted run (and to the
     unsharded one) on both ranks, and the round-2 file holds what the
     one-process mesh's does, member for member (the slab, key, labels
-    and the JSON meta with history and counters)."""
+    and the JSON meta with history and counters; the counters of the
+    work a process runs for its own shards, fewer on process 0)."""
     monkeypatch.setenv("FCTPU_ROUNDS_BLOCK", "1")
     edges, n = hybrid_graph(), 300
     det = get_detector("louvain")
@@ -344,8 +350,26 @@ def test_checkpoint_and_resume_across_two_ranks(tmp_path, launches,
         assert sorted(got.files) == sorted(want.files)
         assert "labels" in got.files
         for name in want.files:
-            np.testing.assert_array_equal(got[name], want[name],
-                                          err_msg=name)
+            if name != "meta":
+                np.testing.assert_array_equal(got[name], want[name],
+                                              err_msg=name)
+        got_meta, want_meta = (json.loads(bytes(z["meta"]).decode())
+                               for z in (got, want))
+    # a process counts the sweeps and member chunks it runs itself: the
+    # one-process mesh runs both shards', process 0 its own shard's
+    got_tel, want_tel = got_meta.pop("telemetry"), want_meta.pop("telemetry")
+    assert got_meta == want_meta
+    own = [k for k in want_tel if k in SHARD_WORK]
+    assert {k: v for k, v in got_tel.items() if k not in SHARD_WORK} == \
+        {k: v for k, v in want_tel.items() if k not in SHARD_WORK}
+    assert "detect.sweeps" in own
+    for k in own:
+        assert 0 < got_tel[k] < want_tel[k], k
+    # the driver's deliberate reads are the same in both
+    reads = [k for k in own
+             if k.startswith("host_sync.") and k != "host_sync.total"]
+    assert got_tel["host_sync.total"] - sum(got_tel[k] for k in reads) == \
+        want_tel["host_sync.total"] - sum(want_tel[k] for k in reads)
 
 
 def test_multiprocess_mesh_refusals(launches):

@@ -3,10 +3,12 @@ modules copied from the reference, the reference's own cases run against
 the port's copies, the spans and counters of a consensus run against the
 reference's, the CLI's trace flags and the post-mortem signal."""
 
+import ast
 import json
 import os
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -23,6 +25,9 @@ KARATE = str(REPO / "examples" / "karate_club.txt")
 
 COPIED = ("obs/flight.py", "obs/latency.py", "obs/roundlog.py",
           "obs/export.py", "obs/postmortem.py", "utils/supervise.py")
+
+# Copies that leave out top-level definitions the port does not use.
+DROPPED = {"obs/roundlog.py": ("phase_span",)}
 
 # Counters the reference takes from XLA executables, with no counterpart
 # in eager PyTorch: the port records none of them.
@@ -57,12 +62,27 @@ def registry():
     reg.reset()
 
 
+def _top_level_defs(src: str) -> dict:
+    return {n.name: ast.get_source_segment(src, n)
+            for n in ast.parse(src).body
+            if isinstance(n, (ast.ClassDef, ast.FunctionDef))}
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_reference(rel):
-    """The port's copy is the reference's text with the package renamed."""
-    ref = (REPO / "fastconsensus_tpu" / rel).read_text()
+    """The port's copy is the reference's text with the package renamed;
+    a copy in DROPPED keeps every other top-level class and function of
+    the reference's, each with the reference's text."""
+    ref = (REPO / "fastconsensus_tpu" / rel).read_text().replace(
+        "fastconsensus_tpu", "fastconsensus_tpu_torch")
     port = (REPO / "fastconsensus_tpu_torch" / rel).read_text()
-    assert port == ref.replace("fastconsensus_tpu", "fastconsensus_tpu_torch")
+    if rel not in DROPPED:
+        assert port == ref
+        return
+    theirs, mine = _top_level_defs(ref), _top_level_defs(port)
+    assert set(DROPPED[rel]) <= set(theirs)
+    assert set(mine) == set(theirs) - set(DROPPED[rel])
+    assert all(mine[name] == theirs[name] for name in mine)
 
 
 REFERENCE_CASES = [
@@ -306,3 +326,270 @@ def test_dump_on_signal_writes_a_bundle_naming_the_cache(tmp_path):
     assert rounds["last"]["round"] == 1
     assert any(p.name.startswith("out_partitions_")
                for p in tmp_path.iterdir())
+
+
+# ---------------------------------------------- spans on the Unix clock
+
+@pytest.mark.parametrize("sleep_s", [0.0, 0.005, 0.02])
+def test_span_unix_interval_lies_within_the_clock_reads(sleep_s):
+    """A span's host interval, on the Unix clock, lies within 1 ms of
+    ``time.time_ns()`` read just before and just after it."""
+    from fastconsensus_tpu_torch.obs import Tracer
+
+    tr = Tracer()
+    before = time.time_ns()
+    with tr.span("a"):
+        time.sleep(sleep_s)
+    after = time.time_ns()
+    (span,) = tr.spans()
+    start, end = span["host"]
+    assert abs(start - before) <= 1e6 and abs(end - after) <= 1e6
+    assert end - start >= sleep_s * 1e9 - 1e6
+    assert span["device"] is None           # a host-only tracer
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event``: its clock is the host's, run
+    ``rate`` times as fast from another zero."""
+
+    made = 0
+    rate = 1.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.ns = None
+
+    def record(self):
+        self.ns = 12_345 + self.rate * time.time_ns()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.ns - self.ns) / 1e6
+
+
+@pytest.fixture()
+def fake_card(monkeypatch):
+    """A card that is not there: ``torch.cuda`` reports one, its events
+    read the host's clock and its synchronize does nothing."""
+    _FakeEvent.made, _FakeEvent.rate = 0, 1.0
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(a))
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    return syncs
+
+
+def test_disabled_tracer_records_nothing_and_creates_no_event(fake_card):
+    """A disabled tracer, device-timed or not, hands out the shared no-op
+    span: no event, no synchronize, nothing recorded."""
+    from fastconsensus_tpu_torch.obs import Tracer
+    from fastconsensus_tpu_torch.obs.tracer import _NULL_SPAN
+
+    tr = Tracer(enabled=False, device_timed=True)
+    assert not tr.device_timed
+    for name in ("consensus", "detect", "sweep"):
+        span = tr.span(name, k=1)
+        assert span is _NULL_SPAN
+        with span:
+            pass
+    assert tr.events() == [] and tr.spans() == []
+    assert _FakeEvent.made == 0 and fake_card == []
+
+
+@pytest.mark.parametrize("card", [None, 1.0, 1.25])
+def test_device_timed_spans(card, request):
+    """Device ranges go to the layer boundaries only: on the CPU each is
+    its span's host interval, on a card a pair of events resolved onto
+    the Unix clock, whatever the rate of the card's clock (``card``);
+    inside a capture no event is recorded and the span keeps its host
+    interval only."""
+    from fastconsensus_tpu_torch.obs import Tracer
+    from fastconsensus_tpu_torch.obs.tracer import ANCHOR_TRIES, DEVICE_TIMED
+    from fastconsensus_tpu_torch.ops import capture
+
+    if card:
+        request.getfixturevalue("fake_card")
+        _FakeEvent.rate = card
+    tr = Tracer(device_timed=True)
+    made = _FakeEvent.made
+    assert made == (ANCHOR_TRIES if card else 0)    # the first anchor
+    with tr.span("round"):
+        with tr.span("detect"):
+            with tr.span("sweep"):
+                time.sleep(0.02)
+        with capture.capture_safe():
+            with tr.span("tail"):
+                pass
+    assert _FakeEvent.made - made == (4 if card else 0)
+    by = {s["name"]: s for s in tr.spans()}
+    assert {"round", "detect", "tail"} <= DEVICE_TIMED
+    assert "sweep" not in DEVICE_TIMED
+    assert by["sweep"]["device"] is None and by["tail"]["device"] is None
+    for name in ("round", "detect"):
+        host, dev = by[name]["host"], by[name]["device"]
+        if card:
+            assert dev[0] <= dev[1]
+            assert abs(dev[0] - host[0]) <= 1e6
+            assert abs(dev[1] - host[1]) <= 1e6
+        else:
+            assert dev == host
+
+
+def _karate_batch(b):
+    from fastconsensus_tpu_torch.serve.bucketer import pad_to_bucket
+    from fastconsensus_tpu_torch.utils.io import read_edgelist
+
+    edges, _, ids = read_edgelist(KARATE)
+    return [pad_to_bucket(edges, len(ids), device="cpu") for _ in range(b)]
+
+
+@pytest.mark.parametrize("algorithm", ["louvain", "lpm"])
+def test_run_counts_every_sweep_read_and_member_chunk(algorithm, registry):
+    """A traced CPU run: every eager sweep's exit read is counted
+    (``host_sync.sweep_exit``, one a sweep and one a loop that stops
+    early), as is every eager tail's convergence test, and both are in
+    ``host_sync.total``; the counters agree with the spans; every
+    detection runs at least one member chunk."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import Tracer, use_tracer
+
+    tr = Tracer()
+    with use_tracer(tr):
+        run_consensus(_karate_slab(), get_detector(algorithm),
+                      ConsensusConfig(algorithm=algorithm, n_p=6,
+                                      max_rounds=3, seed=0))
+    c = registry.counters()
+    spans = tr.spans()
+    named = lambda n: [s for s in spans if s["name"] == n]  # noqa: E731
+    exits, sweeps = c.get("host_sync.sweep_exit", 0), c.get(
+        "detect.sweeps", 0)
+    assert exits == len(named("sweep_exit"))
+    assert sweeps == len(named("sweep"))
+    assert c.get("detect.member_sweeps", 0) == sum(
+        s["args"]["active"] for s in named("sweep"))
+    assert sweeps <= exits
+    if algorithm == "louvain":
+        assert sweeps > 0
+    assert c["host_sync.tail_converged"] == len(named("tail")) > 0
+    assert c["host_sync.total"] == sum(
+        v for k, v in c.items()
+        if k.startswith("host_sync.") and k != "host_sync.total")
+    detections = len(named("detect")) + len(named("final_detect"))
+    assert c["detect.member_chunks"] == len(named("member_chunk")) >= \
+        detections >= 2
+    assert all(s["parent"] in ("detect", "final_detect")
+               for s in named("member_chunk"))
+    assert named("consensus")[0]["parent"] is None
+    assert {s["parent"] for s in named("round")} == {"consensus"}
+
+
+@pytest.mark.parametrize("max_sweeps", [1, 3, 32])
+def test_sweep_loop_reads_once_a_sweep(max_sweeps, registry):
+    """One eager ``local_move``: one exit read a sweep, and one more where
+    it stops before ``max_sweeps``."""
+    from fastconsensus_tpu_torch.models import louvain
+    from fastconsensus_tpu_torch.utils import prng
+
+    keys = prng.partition_keys(prng.key(3, "cpu"), 4)
+    louvain.local_move(_karate_slab(), keys, max_sweeps=max_sweeps)
+    c = registry.counters()
+    sweeps = c["detect.sweeps"]
+    assert 1 <= sweeps <= max_sweeps
+    assert c["host_sync.sweep_exit"] == min(sweeps + 1, max_sweeps)
+    assert c["host_sync.total"] == c["host_sync.sweep_exit"]
+    assert sweeps <= c["detect.member_sweeps"] <= 4 * sweeps
+
+
+@pytest.mark.parametrize("b", [2, 3])
+def test_batch_round_spans_split_detect_and_tails(b, registry):
+    """A traced CPU batch: each eager batched round is one
+    ``batch_round`` span (args ``mode``, ``active``, ``rounds``) with one
+    ``detect`` and one ``tail`` per job it runs under it, and the batch
+    counters count the rounds and the jobs' rounds."""
+    from fastconsensus_tpu_torch.consensus import (ConsensusConfig,
+                                                   run_consensus_batch)
+    from fastconsensus_tpu_torch.models.registry import get_detector
+    from fastconsensus_tpu_torch.obs import Tracer, use_tracer
+
+    padded = _karate_batch(b)
+    tr = Tracer()
+    with use_tracer(tr):
+        res = run_consensus_batch(
+            [s for s, _ in padded], get_detector("louvain"),
+            ConsensusConfig(n_p=4, max_rounds=3),
+            n_closure=padded[0][1].n_closure, seeds=list(range(1, b + 1)))
+    children, rounds = [], []
+    for span in tr.spans():             # ordered by end: children first
+        if span["parent"] == "batch_round":
+            children.append(span)
+        elif span["name"] == "batch_round":
+            rounds.append((span, children))
+            children = []
+    assert rounds and not any(s["name"] == "batch_block"
+                              for s in tr.spans())
+    for span, kids in rounds:
+        args = span["args"]
+        assert span["parent"] == "consensus_batch"
+        assert args["mode"] in ("cold", "warm", "refresh", "scratch")
+        assert args["rounds"][0] <= args["rounds"][1]
+        assert [k["name"] for k in kids if k["name"] == "detect"] == \
+            ["detect"]
+        tails = [k for k in kids if k["name"] == "tail"]
+        assert [t["args"]["job"] for t in tails] == \
+            list(range(args["active"]))
+    c = registry.counters()
+    assert c["batch.rounds"] == len(rounds)
+    assert c["batch.job_rounds"] == sum(s["args"]["active"]
+                                        for s, _ in rounds) == \
+        sum(r.rounds for r in res)
+
+
+@pytest.mark.parametrize("name", ["phase_span", "detect_dispatch"])
+def test_unread_tracing_is_gone(name):
+    """Neither ``phase_span`` nor the ``detect_dispatch`` span is left in
+    the port: nothing read them."""
+    from fastconsensus_tpu_torch import obs
+    from fastconsensus_tpu_torch.obs import roundlog
+
+    assert not hasattr(obs, name) and not hasattr(roundlog, name)
+    assert name not in obs.__all__
+    for path in (REPO / "fastconsensus_tpu_torch").rglob("*.py"):
+        src = path.read_text()
+        assert f'span("{name}"' not in src and f"def {name}(" not in src, \
+            path
+
+
+def test_flight_mirrors_round_level_spans_only():
+    """An enabled tracer mirrors the round-level spans into the flight
+    ring, never a sweep's or a chunk's, which would push the serving
+    events out of the bounded ring."""
+    from fastconsensus_tpu_torch.obs import Tracer, get_flight_recorder
+    from fastconsensus_tpu_torch.obs.tracer import FLIGHT_MIRRORED
+
+    rec = get_flight_recorder()
+    rec.reset()
+    tr = Tracer()
+    with tr.span("consensus"):
+        with tr.step_span("round", 0):
+            with tr.span("detect"):
+                with tr.span("member_chunk", chunk=0):
+                    for it in range(3):
+                        with tr.span("sweep_exit", it=it):
+                            pass
+                        with tr.span("sweep", it=it):
+                            pass
+    mirrored = [(e["kind"], e["name"]) for e in rec.events(
+        kinds=("span_open", "span_close"))]
+    rec.reset()
+    assert mirrored == [("span_open", "consensus"), ("span_open", "round"),
+                        ("span_close", "round"),
+                        ("span_close", "consensus")]
+    assert {"consensus", "consensus_batch", "round", "rounds_block",
+            "batch_round", "batch_block", "final_detect",
+            "batch_final_detect"} == FLIGHT_MIRRORED
